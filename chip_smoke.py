@@ -6,23 +6,34 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each a plain function; any failure raises and the exit code is not 0:
   1. toolchain: card, power limit, torch/CUDA versions, nvcc; needs sm_90
   2. build: compile csrc/ntt.cu with nvcc and load it
-  3. kernels vs plain: both NTT kernels against their plain PyTorch versions
-     on the card, bit for bit, at the main path's shapes and two more
-  4. main path: CKKS at N=4096 with 21 ciphertext primes and one special
-     prime (the reference's bench.py configuration): encode, encrypt,
-     rotate by 1, decrypt; then multiply_relin, rescale, decrypt
-  5. CUDA vs CPU: the same ops with the same seed on the CPU (plain
-     versions) give identical keys, ciphertexts and decrypted words
-  6. launch counts of the main path, and per rotation
-  7. times: warm rotation latency against SEAL's 14,377 µs CPU rotation, and
-     kernel against plain NTT at (21, 22, 4096), with CUDA events
+  3. kernels vs plain: every NTT kernel form against its plain PyTorch version
+     on the card, bit for bit: the one-block kernels at the N=4096 path's
+     shapes, both forms at n=16384 and 32768 and the large-ring form at
+     n=65536 at the large paths' shapes (per-limb and grouped digits, special
+     limbs, mod-down deltas, non-contiguous takes, 31-bit primes), and the
+     large-ring form at n=4096 against the one-block kernels
+  4. N=4096 path: CKKS with 21 ciphertext primes and one special prime (the
+     reference's bench.py configuration): encode, encrypt, rotate by 1,
+     decrypt; multiply_relin, rescale, decrypt; the same seed on the CPU
+     (plain versions) gives identical keys, ciphertexts and decrypted words
+  5. N=65536 path, per-limb digits (21 + 1 limbs): the same ops; a second
+     run of the same seed on the card with the plain NTTs gives identical
+     arrays, and a shallower chain of the same ring agrees with a CPU run
+  6. N=65536 path, grouped digits (dnum=3, 21 + 7 limbs): rotate,
+     multiply_relin and rescale twice, a rotation at the lowered level; the
+     same seed on the CPU gives identical arrays
+  7. one rotation each at N=16384 and N=32768, 21 + 1 limbs
+  8. launch counts per rotation at each ring and for dnum=3
+  9. times with CUDA events: each kernel form against its plain version at
+     (21, 22, n) and (3, 28, 65536), and warm rotations
 
-The second-to-last line is the per-kernel JSON record and the line before it
+The third-to-last line is the per-kernel JSON record, the second-to-last
 names the card and its power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import time
@@ -30,8 +41,11 @@ import time
 import numpy as np
 import torch
 
+from rfhe_tpu_torch.device import to_numpy_u32
 from rfhe_tpu_torch.fhe import CkksContext, CkksParams
+from rfhe_tpu_torch.fhe.keys import compute_digits
 from rfhe_tpu_torch.fhe.params import make_prime_chain
+from rfhe_tpu_torch.fhe.rns import poly_intt
 from rfhe_tpu_torch.ops import ntt_cuda
 from rfhe_tpu_torch.ops.ntt import NttPlan, ntt_fwd_reference, ntt_inv_reference
 
@@ -39,8 +53,31 @@ SEAL_ROTATION_US = 14_377.0      # reference: SEAL 4.1 CPU, N=4096, 21 limbs
 SOURCE = "rfhe_tpu_torch/csrc/ntt.cu"
 REPLACES = {"fwd": "rfhe_tpu/ops/ntt_fused.py:250 (_fwd_kernel)",
             "inv": "rfhe_tpu/ops/ntt_fused.py:270 (_inv_kernel)"}
-BENCH = dict(n=4096, levels=20, q0_bits=30, scale_bits=28)
+CHAIN = dict(levels=20, q0_bits=30, scale_bits=28)      # 21 ciphertext primes
+BENCH = dict(n=4096, **CHAIN)
+LARGE = dict(n=65536, **CHAIN)
+SHALLOW = dict(n=65536, levels=2, q0_bits=30, scale_bits=28)
+LARGE_RINGS = (16384, 32768, 65536)
+DNUM = 3
 SEED = 7
+# Limits on the decrypted slots, (rotation, square) by ring.  The chain's
+# 28-bit scale is the rotation profile's, not a precision setting: the
+# reference's keyswitch takes non-centred digits, whose noise is
+# low-frequency and grows in a slot about 3.5x per doubling of N (5.6e-4 at
+# N=4096, 6.3e-2 at N=65536 on per-limb digits).  A wrong decryption is off
+# by far more than 1; bit-exactness is held by the array comparisons.
+LIMITS = {4096: (1e-3, 1e-2), 16384: (2e-2, 2e-2), 32768: (6e-2, 5e-2), 65536: (2e-1, 1e-1)}
+FOURTH_POWER_LIMIT = 2e-1
+
+# The least time the card could take (H100 SXM data sheet): bytes over the
+# memory rate against operations over the peak rate.  The butterflies are
+# 32-bit integer operations, for which the sheet has no row; they are counted
+# against its float32 rate outside the tensor cores, which the integer units
+# do not exceed, so the bound stays a lower bound.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+OPS_PER_BUTTERFLY = 12           # Shoup product 6, modular add 3, modular sub 3
+OPS_PER_SCALE = 6                # the exit factor: one Shoup product
 
 
 def card() -> str:
@@ -75,13 +112,14 @@ def phase_build() -> None:
             print(f"[build] {line.strip()}")
 
 
-def bench_chain() -> tuple:
-    """The bench configuration's 21 ciphertext primes + its special prime,
-    chosen as CkksContext chooses it."""
-    params = CkksParams.make(**BENCH)
-    special = [p for p in make_prime_chain(params.n, [31] * 3)
-               if p not in params.moduli][0]
-    return tuple(params.moduli) + (special,)
+def basis(n: int, n_special: int) -> tuple:
+    """The 21 ciphertext primes of CHAIN at ring n followed by `n_special`
+    special primes, chosen as CkksContext chooses them."""
+    params = CkksParams.make(n=n, **CHAIN)
+    bits = 30 if n >= 65536 else 31
+    specials = [p for p in make_prime_chain(n, [bits] * (n_special + 2))
+                if p not in params.moduli][:n_special]
+    return tuple(params.moduli) + tuple(specials)
 
 
 def test_vectors(plan: NttPlan, batch: int, seed: int) -> list:
@@ -98,103 +136,245 @@ def test_vectors(plan: NttPlan, batch: int, seed: int) -> list:
     return [("random", rand), ("all q-1", full), ("spike", spike)]
 
 
-def phase_kernels() -> dict:
-    chain = bench_chain()
+def forms_of(n: int) -> list:
+    """The splits of every form that ring n can take (0: one block)."""
+    own = ntt_cuda.large_split(n)
+    return [own] if n > ntt_cuda.MAX_ONE_BLOCK_N else [0, own]
+
+
+def form_of(n: int, split) -> str:
+    """'' for the one-block kernels, '_large' for the large-ring form."""
+    return "_large" if (ntt_cuda.default_split(n) if split is None else split) else ""
+
+
+def kernel_cases() -> list:
+    """(name, plan, batch, splits): `splits` lists the forms to hold against
+    the plain versions, None being the one the plan takes by itself."""
+    chain = basis(4096, 1)
     full = NttPlan.make(4096, chain, "cuda")
     special = len(chain) - 1
     cases = [
-        ("n=4096 (21, 22) keyswitch digits", full, 21),
-        ("n=4096 (2, 1) special limb", full.take([special]), 2),
-        ("n=4096 (2, 21) mod-down delta", full.slice(special), 2),
-        ("n=4096 (3, 3) non-contiguous take", full.take([special, 0, 7]), 3),
-        ("n=2048 31-bit (3, 3)", NttPlan.make(2048, make_prime_chain(2048, [31] * 3), "cuda"), 3),
-        ("n=256 30-bit (3, 3)", NttPlan.make(256, make_prime_chain(256, [30] * 3), "cuda"), 3),
+        ("n=4096 (21, 22) keyswitch digits", full, 21, [None, 6]),
+        ("n=4096 (2, 1) special limb", full.take([special]), 2, [None, 7]),
+        ("n=4096 (2, 21) mod-down delta", full.slice(special), 2, [None]),
+        ("n=4096 (3, 3) non-contiguous take", full.take([special, 0, 7]), 3, [None, 5]),
+        ("n=2048 31-bit (3, 3)", NttPlan.make(2048, make_prime_chain(2048, [31] * 3), "cuda"), 3, [None]),
+        ("n=256 30-bit (3, 3)", NttPlan.make(256, make_prime_chain(256, [30] * 3), "cuda"), 3, [None, 1, 7]),
     ]
-    err = {"fwd": 0, "inv": 0}
-    for i, (name, plan, batch) in enumerate(cases):
+    for n in LARGE_RINGS:
+        splits = forms_of(n)   # both forms where the ring fits one block
+        grouped = NttPlan.make(n, basis(n, 7), "cuda")       # 21 + 7 limbs
+        cases += [
+            (f"n={n} (21, 22) per-limb digits", grouped.slice(22), 21, splits),
+            (f"n={n} (2, 1) special limb", grouped.take([21]), 2, splits),
+            (f"n={n} (2, 21) mod-down delta", grouped.slice(21), 2, splits),
+            (f"n={n} (3, 6) take with specials", grouped.take([27, 3, 21, 0, 24, 20]), 3, splits),
+            (f"n={n} (3, 28) grouped digits", grouped, 3, splits),
+        ]
+    cases.append(("n=65536 31-bit (3, 3)",
+                  NttPlan.make(65536, make_prime_chain(65536, [31] * 3), "cuda"), 3, [None, 7]))
+    return cases
+
+
+def phase_kernels() -> dict:
+    err = dict.fromkeys(ntt_cuda.FORMS, 0)
+    checked = dict.fromkeys(ntt_cuda.FORMS, 0)
+    for i, (name, plan, batch, splits) in enumerate(kernel_cases()):
         for vname, xv in test_vectors(plan, batch, seed=i):
             x = torch.from_numpy(xv).cuda()
-            y = plan.fwd(x)
             y_ref = ntt_fwd_reference(x, plan)
-            back = plan.inv(y)
-            back_ref = ntt_inv_reference(y, plan)
-            torch.cuda.synchronize()
-            e_f = int((y - y_ref).abs().max())
-            e_i = int((back - back_ref).abs().max())
-            err["fwd"] = max(err["fwd"], e_f)
-            err["inv"] = max(err["inv"], e_i)
-            ok = e_f == 0 and e_i == 0 and torch.equal(back, x)
-            print(f"[kernels] {name:36s} {vname:8s} fwd err {e_f} inv err {e_i} "
-                  f"inv(fwd(x)) == x: {torch.equal(back, x)}")
-            if not ok:
-                raise RuntimeError(f"kernel disagrees with its plain version: {name}, {vname}")
+            back_ref = ntt_inv_reference(y_ref, plan)
+            for split in splits:
+                large = form_of(plan.n, split)
+                y = ntt_cuda.fwd(x, plan, split)
+                back = ntt_cuda.inv(y_ref, plan, split)
+                torch.cuda.synchronize()
+                e_f = int((y - y_ref).abs().max())
+                e_i = int((back - back_ref).abs().max())
+                err["fwd" + large] = max(err["fwd" + large], e_f)
+                err["inv" + large] = max(err["inv" + large], e_i)
+                checked["fwd" + large] += 1
+                checked["inv" + large] += 1
+                form = f"large-ring split 2^{split if split else ntt_cuda.default_split(plan.n)}" \
+                    if large else "one-block"
+                print(f"[kernels] {name:36s} {vname:8s} {form:22s} fwd err {e_f} inv err {e_i} "
+                      f"inv(fwd(x)) == x: {torch.equal(back, x)}")
+                if not (e_f == 0 and e_i == 0 and torch.equal(back, x)):
+                    raise RuntimeError(f"kernel disagrees with its plain version: {name}, {vname}, {form}")
+    print(f"[kernels] comparisons per kernel form: {checked}, max abs err {err} (tolerance 0)")
+    if min(checked.values()) == 0:
+        raise RuntimeError(f"a kernel form was never compared: {checked}")
     return err
 
 
-def run_path(device: str) -> tuple:
-    """The main path on one device.  Returns (ctx, arrays, slots) where
-    arrays maps a name to the numpy arrays the step produced."""
-    ctx = CkksContext(CkksParams.make(**BENCH), seed=SEED, device=device)
-    z = np.random.default_rng(0).uniform(-1, 1, BENCH["n"] // 2) + 0j
+@contextlib.contextmanager
+def plain_ntt_on_card():
+    """For a comparison run only: the plan's CUDA dispatch goes to the plain
+    versions, so a whole path can be held against them on the card."""
+    saved = ntt_cuda.fwd, ntt_cuda.inv
+    ntt_cuda.fwd, ntt_cuda.inv = ntt_fwd_reference, ntt_inv_reference
+    try:
+        yield
+    finally:
+        ntt_cuda.fwd, ntt_cuda.inv = saved
+
+
+def run_path(device: str, params: dict, dnum=None, twice: bool = False) -> tuple:
+    """One path on one device: keygen, encrypt, rotate(1), decrypt;
+    multiply_relin, rescale, decrypt; with `twice`, a second multiply_relin
+    and rescale and a rotation at the lowered level.  Returns (ctx, arrays,
+    checks): arrays maps a name to the numpy arrays the step produced,
+    checks is a list of (what, max abs error, limit)."""
+    ctx = CkksContext(CkksParams.make(**params), seed=SEED, dnum=dnum, device=device)
+    n = params["n"]
+    z = np.random.default_rng(0).uniform(-1, 1, n // 2) + 0j
     ct = ctx.encrypt(*ctx.encode(z))
     rot = ctx.rotate(ct, 1)
-    rot_back = ctx.decrypt_decode(rot)
     sq = ctx.rescale(ctx.multiply_relin(ct, ct))
-    sq_back = ctx.decrypt_decode(sq)
-    if device == "cuda":
-        torch.cuda.synchronize()
+    checks = [("rotate(1) decrypts to roll(z, -1)",
+               np.abs(ctx.decrypt_decode(rot) - np.roll(z, -1)).max(), LIMITS[n][0]),
+              ("rescale(x*x) decrypts to z^2",
+               np.abs(ctx.decrypt_decode(sq) - z * z).max(), LIMITS[n][1])]
+    # the keyswitch digits of c1 and their NTT, as `keyswitch` computes them
+    dig, _, lim = compute_digits(poly_intt(ct.c[1], ctx.ctx).data, ct.level, ctx.ctx, ctx.L, dnum)
     arrays = {"encrypt": ct.to_numpy(), "rotate": rot.to_numpy(), "mul_relin_rescale": sq.to_numpy(),
+              "digits_ntt": [to_numpy_u32(ctx.ctx.plan.take(lim).fwd(dig))],
               "rotate_words": [w.cpu().numpy() for w in ctx.decrypt_words(rot)],
               "square_words": [w.cpu().numpy() for w in ctx.decrypt_words(sq)]}
+    del dig
+    if twice:
+        sq2 = ctx.rescale(ctx.multiply_relin(sq, sq))
+        low = ctx.rotate(sq2, 1)
+        checks.append(("rotate(rescale((x*x)^2), 1) decrypts to roll(z^4, -1)",
+                       np.abs(ctx.decrypt_decode(low) - np.roll(z ** 4, -1)).max(),
+                       FOURTH_POWER_LIMIT))
+        arrays["square_twice"] = sq2.to_numpy()
+        arrays["rotate_low"] = low.to_numpy()
+        arrays["rotate_low_words"] = [w.cpu().numpy() for w in ctx.decrypt_words(low)]
+    if device == "cuda":
+        torch.cuda.synchronize()
     arrays.update({k: [v] for k, v in ctx.export_keys().items()})
-    return ctx, arrays, (z, rot_back, sq_back)
+    return ctx, arrays, checks
 
 
-def phase_main_path() -> tuple:
+def same_arrays(a: dict, b: dict, what: str) -> int:
+    if a.keys() != b.keys():
+        raise RuntimeError(f"{what}: the two runs made different arrays")
+    for name in a:
+        for x, y in zip(a[name], b[name]):
+            if x.shape != y.shape or not np.array_equal(x, y):
+                raise RuntimeError(f"{what}: the two runs differ in {name}")
+    return sum(len(v) for v in a.values())
+
+
+def drive_counted(tag: str, what: str, params: dict, dnum=None, twice: bool = False) -> tuple:
+    """Drive one path on the card with the launch counts set to 0 just
+    before and read just after; check its decryptions against their limits."""
     ntt_cuda.KERNELS.reset_counts()
     t0 = time.perf_counter()
-    ctx, arrays, (z, rot_back, sq_back) = run_path("cuda")
+    ctx, arrays, checks = run_path("cuda", params, dnum, twice)
     secs = time.perf_counter() - t0
-    launches = {"fwd": ntt_cuda.KERNELS.fwd_launches, "inv": ntt_cuda.KERNELS.inv_launches}
-    err_rot = float(np.abs(rot_back - np.roll(z, -1)).max())
-    err_sq = float(np.abs(sq_back - z * z).max())
-    print(f"[main] CKKS N=4096, 21+1 limbs, seed {SEED} on cuda: keygen, encrypt, rotate(1), "
-          f"multiply_relin, rescale, decrypts in {secs:.2f} s (first call, keys included)")
-    print(f"[main] rotate(1) decrypts to roll(z, -1): max abs err {err_rot:.3e} (limit 1e-3)")
-    print(f"[main] rescale(x*x) decrypts to z^2: max abs err {err_sq:.3e} (limit 1e-2)")
-    if not np.allclose(rot_back, np.roll(z, -1), atol=1e-3):
-        raise RuntimeError("rotation does not decrypt to the rotated slots")
-    if not np.allclose(sq_back, z * z, atol=1e-2):
-        raise RuntimeError("multiply_relin + rescale does not decrypt to z^2")
-    print(f"[main] kernel launches on the main path: fwd {launches['fwd']}, inv {launches['inv']}")
-    if launches["fwd"] == 0 or launches["inv"] == 0:
-        raise RuntimeError(f"the main path did not launch both kernels: {launches}")
+    launches, passes = dict(ntt_cuda.KERNELS.launches), dict(ntt_cuda.KERNELS.passes)
+    print(f"[{tag}] {what}, seed {SEED} on cuda: keygen, encrypt, rotate(1), multiply_relin, "
+          f"rescale{' (twice), rotate' if twice else ''}, decrypts in {secs:.2f} s "
+          f"(first call, keys included)")
+    for name, e, limit in checks:
+        print(f"[{tag}] {name}: max abs err {e:.3e} (limit {limit:g})")
+        if not e <= limit:
+            raise RuntimeError(f"{what}: {name} fails its limit")
+    print(f"[{tag}] kernel launches on this path: {launches}; __global__ launches: {passes}")
+    large = form_of(params["n"], None)
+    if launches["fwd" + large] == 0 or launches["inv" + large] == 0:
+        raise RuntimeError(f"{what} did not launch both kernels: {launches}")
     return ctx, arrays, launches
 
 
-def phase_cpu_parity(cuda_arrays: dict) -> None:
+def phase_main_path() -> tuple:
+    ctx, arrays, launches = drive_counted("main", "CKKS N=4096, 21+1 limbs", BENCH)
     t0 = time.perf_counter()
-    _, cpu_arrays, _ = run_path("cpu")
-    if cpu_arrays.keys() != cuda_arrays.keys():
-        raise RuntimeError("CPU and CUDA runs made different arrays")
-    for name in cuda_arrays:
-        for a, b in zip(cuda_arrays[name], cpu_arrays[name]):
-            if a.shape != b.shape or not np.array_equal(a, b):
-                raise RuntimeError(f"CUDA and CPU differ in {name}")
-    n = sum(len(v) for v in cuda_arrays.values())
-    print(f"[parity] {n} arrays ({', '.join(cuda_arrays)}) identical on cuda and cpu "
+    _, cpu_arrays, _ = run_path("cpu", BENCH)
+    count = same_arrays(arrays, cpu_arrays, "N=4096 cuda vs cpu")
+    print(f"[parity] {count} arrays ({', '.join(arrays)}) identical on cuda and cpu "
           f"(cpu run {time.perf_counter() - t0:.1f} s)")
+    return ctx, launches
 
 
-def phase_counts(ctx: CkksContext) -> dict:
-    ct = ctx.encrypt(*ctx.encode(np.zeros(ctx.params.n // 2) + 0j))
-    ctx.rotate(ct, 1)
+def phase_large_per_limb() -> tuple:
+    """N=65536, 21 + 1 limbs, per-limb digits.  A CPU run of the plain
+    butterflies over (21, 22, 65536) takes minutes, so the full path is held
+    against the plain versions on the card, array by array, and the CPU
+    comparison runs at a shallower chain of the same ring."""
+    ctx, arrays, launches = drive_counted("large", "CKKS N=65536, 21+1 limbs, per-limb digits", LARGE)
     ntt_cuda.KERNELS.reset_counts()
-    ctx.rotate(ct, 1)
-    torch.cuda.synchronize()
-    per = {"fwd": ntt_cuda.KERNELS.fwd_launches, "inv": ntt_cuda.KERNELS.inv_launches}
-    print(f"[counts] per rotation: fwd {per['fwd']}, inv {per['inv']}")
-    return ct
+    t0 = time.perf_counter()
+    with plain_ntt_on_card():
+        _, plain_arrays, _ = run_path("cuda", LARGE)
+    if ntt_cuda.KERNELS.fwd_launches or ntt_cuda.KERNELS.inv_launches:
+        raise RuntimeError("the plain comparison run launched a kernel")
+    count = same_arrays(arrays, plain_arrays, "N=65536 kernels vs plain NTTs on the card")
+    print(f"[large] {count} arrays ({', '.join(arrays)}) identical between the kernel run and a "
+          f"second run of the same seed with the plain NTTs on the card ({time.perf_counter() - t0:.1f} s)")
+    del arrays, plain_arrays
+    t0 = time.perf_counter()
+    _, shallow_cuda, _ = run_path("cuda", SHALLOW)
+    _, shallow_cpu, _ = run_path("cpu", SHALLOW)
+    count = same_arrays(shallow_cuda, shallow_cpu, "N=65536 shallow chain, cuda vs cpu")
+    print(f"[large] CPU comparison at a shallower chain of the same ring (N=65536, 3+1 limbs): "
+          f"{count} arrays identical on cuda and cpu ({time.perf_counter() - t0:.1f} s)")
+    return ctx, launches
+
+
+def phase_large_grouped() -> tuple:
+    ctx, arrays, launches = drive_counted(
+        "grouped", f"CKKS N=65536, 21+7 limbs, dnum={DNUM}", LARGE, DNUM, twice=True)
+    shape = tuple(ctx.rlk.b.shape)
+    if shape != (DNUM, 28, 65536):
+        raise RuntimeError(f"grouped key shape {shape}")
+    t0 = time.perf_counter()
+    _, cpu_arrays, _ = run_path("cpu", LARGE, DNUM, twice=True)
+    count = same_arrays(arrays, cpu_arrays, "N=65536 dnum=3 cuda vs cpu")
+    print(f"[grouped] keys of shape {shape}; {count} arrays ({', '.join(arrays)}) identical on "
+          f"cuda and cpu (cpu run {time.perf_counter() - t0:.1f} s)")
+    return ctx, launches
+
+
+def phase_mid_rings() -> dict:
+    """One rotation at N=16384 and N=32768, 21 + 1 limbs, so every ring the
+    TPU kernels serve is launched on a real path."""
+    out = {}
+    for n in (16384, 32768):
+        ntt_cuda.KERNELS.reset_counts()
+        t0 = time.perf_counter()
+        ctx = CkksContext(CkksParams.make(n=n, **CHAIN), seed=SEED, device="cuda")
+        z = np.random.default_rng(0).uniform(-1, 1, n // 2) + 0j
+        ct = ctx.encrypt(*ctx.encode(z))
+        e = np.abs(ctx.decrypt_decode(ctx.rotate(ct, 1)) - np.roll(z, -1)).max()
+        launches = dict(ntt_cuda.KERNELS.launches)
+        print(f"[rings] CKKS N={n}, 21+1 limbs: rotate(1) decrypts to roll(z, -1): max abs err "
+              f"{e:.3e} (limit {LIMITS[n][0]:g}), launches {launches} ({time.perf_counter() - t0:.1f} s)")
+        if not e <= LIMITS[n][0]:
+            raise RuntimeError(f"N={n}: rotation does not decrypt to the rotated slots")
+        large = form_of(n, None)
+        if launches["fwd" + large] == 0 or launches["inv" + large] == 0:
+            raise RuntimeError(f"N={n}: the rotation did not launch both kernels: {launches}")
+        out[n] = (ctx, ct, launches)
+    return out
+
+
+def phase_counts(ctxs: dict) -> dict:
+    """Launches of both kernels in one warm rotation, per context."""
+    cts = {}
+    for name, ctx in ctxs.items():
+        ct = ctx.encrypt(*ctx.encode(np.zeros(ctx.params.n // 2) + 0j))
+        ctx.rotate(ct, 1)
+        ntt_cuda.KERNELS.reset_counts()
+        ctx.rotate(ct, 1)
+        torch.cuda.synchronize()
+        k = ntt_cuda.KERNELS
+        print(f"[counts] per rotation, {name}: fwd {k.fwd_launches}, inv {k.inv_launches} "
+              f"(by form {k.launches}; __global__ launches {k.passes})")
+        cts[name] = ct
+    return cts
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -209,47 +389,115 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_times(ctx: CkksContext, ct, c: str) -> dict:
-    iters = 30
+def bound_ms(batch: int, L: int, n: int) -> tuple:
+    """(ms, 'bytes' or 'operations'): the least time the card could take for
+    one transform of (batch, L, n) int64 residues.  Bytes: the input read and
+    the output written once, plus the direction's twiddle and Shoup rows of
+    the L limbs and the slot table.  Operations: n/2·log2(n) butterflies and
+    n exit products per vector."""
+    log_n = n.bit_length() - 1
+    moved = 2 * 8 * batch * L * n + L * 2 * n * 4 + n * 4
+    ops = batch * L * (n // 2 * log_n * OPS_PER_BUTTERFLY + n * OPS_PER_SCALE)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_forms(c: str, plan: NttPlan, batch: int, splits: list) -> dict:
+    """Kernel (each form of `splits`) and plain times of both directions at
+    (batch, L, n), in the order plain, kernel, kernel, plain."""
+    q = plan.q_arr[:, None]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(0, 1 << 62, (batch, plan.L, plan.n), device="cuda", generator=g) % q
+    y = plan.fwd(x)
+    plain_reps = 20 if plan.n <= 4096 else 4
+    b_ms, b_by = bound_ms(batch, plan.L, plan.n)
+    out = {}
+    for d, data, kern, plain in (("fwd", x, ntt_cuda.fwd, ntt_fwd_reference),
+                                 ("inv", y, ntt_cuda.inv, ntt_inv_reference)):
+        p1 = cuda_ms(lambda: plain(data, plan), plain_reps)
+        ks = {s: [cuda_ms(lambda: kern(data, plan, s)) for _ in range(2)] for s in splits}
+        p2 = cuda_ms(lambda: plain(data, plan), plain_reps)
+        for s, (k1, k2) in ks.items():
+            form = f"large-ring 2^{s}" if s else "one-block"
+            print(f"[times] {c}: {d} NTT ({batch}, {plan.L}, {plan.n}) {form}: kernel {k1:.4f} / "
+                  f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms (plain, kernel, kernel, plain), "
+                  f"bound {b_ms:.4f} ms by {b_by}")
+            out[d, s] = {"shape": [batch, plan.L, plan.n], "ms": (k1 + k2) / 2,
+                         "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
+def warm_rotate_us(ctx: CkksContext, ct, iters: int) -> float:
     ctx.rotate(ct, 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
         ctx.rotate(ct, 1)
     torch.cuda.synchronize()
-    us = (time.perf_counter() - t0) / iters * 1e6
-    print(f"[times] {c}: warm rotate N=4096 21+1 limbs: {us:.1f} us per rotation "
-          f"({iters} iterations), SEAL CPU {SEAL_ROTATION_US:.0f} us -> x{SEAL_ROTATION_US / us:.2f}")
+    return (time.perf_counter() - t0) / iters * 1e6
 
-    plan = NttPlan.make(4096, bench_chain(), "cuda")
-    q = plan.q_arr[:, None]
-    g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randint(0, 1 << 62, (21, plan.L, plan.n), device="cuda", generator=g) % q
-    y = plan.fwd(x)
-    funcs = {"fwd": (lambda: plan.fwd(x), lambda: ntt_fwd_reference(x, plan)),
-             "inv": (lambda: plan.inv(y), lambda: ntt_inv_reference(y, plan))}
-    times = {}
-    for d, (kern, plain) in funcs.items():
-        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-        times[d] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"[times] {c}: {d} NTT (21, 22, 4096): kernel {k1:.4f} / {k2:.4f} ms, "
-              f"plain {p1:.4f} / {p2:.4f} ms (plain, kernel, kernel, plain)")
-    return {"rotate_us": us, "ntt": times}
+
+def phase_times(ctxs: dict, cts: dict, c: str) -> dict:
+    us = warm_rotate_us(ctxs["N=4096"], cts["N=4096"], 30)
+    print(f"[times] {c}: warm rotate N=4096 21+1 limbs: {us:.1f} us per rotation "
+          f"(30 iterations), SEAL CPU {SEAL_ROTATION_US:.0f} us -> x{SEAL_ROTATION_US / us:.2f}")
+    for name in ("N=65536", f"N=65536 dnum={DNUM}"):
+        us = warm_rotate_us(ctxs[name], cts[name], 10)
+        print(f"[times] {c}: warm rotate {name}, 21 ciphertext limbs: {us:.1f} us per rotation "
+              f"(10 iterations)")
+    times = {4096: time_forms(c, NttPlan.make(4096, basis(4096, 1), "cuda"), 21, [0])}
+    for n in LARGE_RINGS:
+        forms = forms_of(n)
+        grouped = NttPlan.make(n, basis(n, 7), "cuda")
+        times[n] = time_forms(c, grouped.slice(22), 21, forms)
+        if n <= ntt_cuda.MAX_ONE_BLOCK_N:
+            # the small shapes of the mod-down, where the form's choice may differ
+            times[n, "special"] = time_forms(c, grouped.take([21]), 2, forms)
+        if n == 65536:
+            times["grouped"] = time_forms(c, grouped, DNUM, forms)
+    return times
+
+
+def kernel_records(err: dict, launches: dict, times: dict) -> list:
+    """One record per kernel form at its path's keyswitch shape, with the
+    other shapes timed in this run under `other_shapes`."""
+    split = ntt_cuda.large_split(65536)
+    records = []
+    for d in ("fwd", "inv"):
+        for large, head in (("", times[4096][d, 0]), ("_large", times[65536][d, split])):
+            others = [dict(v, form="large-ring" if s else "one-block", of=str(key))
+                      for key, group in times.items() for (dd, s), v in group.items()
+                      if dd == d and bool(s) == bool(large) and v is not head]
+            records.append({"name": f"ntt_{d}{large}", "route": "cuda", "source": SOURCE,
+                            "replaces": REPLACES[d], "launches": launches[d + large],
+                            "max_abs_err": err[d + large], "ms": head["ms"],
+                            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                            "bound_by": head["bound_by"], "library_ms": None,
+                            "shape": head["shape"], "other_shapes": others})
+    return records
 
 
 def main() -> None:
     c = phase_toolchain()
     phase_build()
     err = phase_kernels()
-    ctx, arrays, launches = phase_main_path()
-    phase_cpu_parity(arrays)
-    ct = phase_counts(ctx)
-    times = phase_times(ctx, ct, c)
-    kernels = [{"name": f"ntt_{d}", "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[d], "launches": launches[d],
-                "max_abs_err": err[d], "ms": times["ntt"][d][0],
-                "plain_ms": times["ntt"][d][1]} for d in ("fwd", "inv")]
-    print(json.dumps({"kernels": kernels}))
+    ctxs, launches = {}, dict.fromkeys(ntt_cuda.FORMS, 0)
+    paths = {"N=4096": phase_main_path, "N=65536": phase_large_per_limb,
+             f"N=65536 dnum={DNUM}": phase_large_grouped}
+    for name, phase in paths.items():
+        ctxs[name], path_launches = phase()
+        for form, count in path_launches.items():
+            launches[form] += count
+    for n, (ctx, _, ring_launches) in phase_mid_rings().items():
+        ctxs[f"N={n}"] = ctx
+        for form, count in ring_launches.items():
+            launches[form] += count
+    print(f"[main] kernel launches over all counted paths: {launches}")
+    if min(launches.values()) == 0:
+        raise RuntimeError(f"a kernel form was launched on no path: {launches}")
+    cts = phase_counts(ctxs)
+    times = phase_times(ctxs, cts, c)
+    print(json.dumps({"kernels": kernel_records(err, launches, times)}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

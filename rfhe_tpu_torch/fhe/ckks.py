@@ -22,8 +22,8 @@ from ..numth import crt_constants
 from ..ops.crt64 import Crt64Plan, crt_to_words, words_to_signed
 from ..ops.modarith import add_mod, mont_mul
 from .keys import (
-    KeyGen, KeySwitchKey, PublicKey, SecretKey, _rns_from_signed,
-    _sample_gaussian, _sample_ternary, keyswitch,
+    KeyGen, KeySwitchKey, PublicKey, SecretKey, _digit_groups,
+    _rns_from_signed, _sample_gaussian, _sample_ternary, keyswitch,
 )
 from .params import CkksParams, make_prime_chain
 from .rns import (
@@ -114,21 +114,30 @@ class Ciphertext:
 
 
 class CkksContext:
-    """Parameters, RNS tables (ciphertext primes + special prime) and key
-    material on one device.  `device` is required: nothing picks one."""
+    """Parameters, RNS tables (ciphertext primes + special primes) and key
+    material on one device.  `device` is required: nothing picks one.
+    `dnum` groups the keyswitch digits: α = ⌈L/dnum⌉ limbs per digit and α
+    special primes; None is per-limb digits with one special prime."""
 
     def __init__(self, params: CkksParams, special_bits: Optional[int] = None,
                  seed: int = 7, dnum: Optional[int] = None, *, device):
-        if dnum is not None:
-            raise NotImplementedError("grouped digits (dnum != None) are not ported yet")
+        if dnum is not None and dnum < 1:
+            raise ValueError(f"dnum must be a positive integer or None, got {dnum}")
         self.params = params
         self.device = torch.device(device)
         n = params.n
         if special_bits is None:
             special_bits = 30 if n >= 65536 else 31
-        self.special = [p for p in make_prime_chain(n, [special_bits] * 3)
-                        if p not in params.moduli][0]
-        self.ctx = RnsContext.make(n, tuple(params.moduli) + (self.special,), self.device)
+        self.dnum = dnum
+        n_sp = 1 if dnum is None else -(-params.L // dnum)
+        # special primes: NTT primes not colliding with the chain
+        sps = [p for p in make_prime_chain(n, [special_bits] * (n_sp + 2))
+               if p not in params.moduli][:n_sp]
+        if len(sps) != n_sp:
+            raise ValueError(f"not enough {special_bits}-bit special primes for dnum={dnum}")
+        self.special = sps[0]
+        self.specials = tuple(sps)
+        self.ctx = RnsContext.make(n, tuple(params.moduli) + self.specials, self.device)
         self.L = params.L
         self.keygen = KeyGen(self.ctx, self.L, params.sigma)
         self.rng = np.random.default_rng(seed)
@@ -145,14 +154,15 @@ class CkksContext:
         if self._rlk is None:
             q, rinv = self.ctx.plan.qb(1), self.ctx.plan.rinvb(1)
             s2 = mont_mul(self.sk.s_ntt, self.sk.s_ntt, q, rinv)
-            self._rlk = self.keygen.gen_keyswitch(self.sk, s2, self.rng)
+            self._rlk = self.keygen.gen_keyswitch(self.sk, s2, self.rng, dnum=self.dnum)
         return self._rlk
 
     def galois_key(self, g: int) -> KeySwitchKey:
         """Galois key for X -> X^g, drawn from the context's rng on first use."""
         if g not in self._galois:
             s_g = self.sk.s_ntt.index_select(-1, self.ctx.galois_perm_t(g))
-            self._galois[g] = self.keygen.gen_keyswitch(self.sk, s_g, self.rng)
+            self._galois[g] = self.keygen.gen_keyswitch(self.sk, s_g, self.rng,
+                                                         dnum=self.dnum)
         return self._galois[g]
 
     def export_keys(self) -> Dict[str, np.ndarray]:
@@ -172,22 +182,30 @@ class CkksContext:
         """Replace the key material with `state`: uint32 arrays `sk_s_ntt`,
         `pk_b`, `pk_a`, optional `galois_<g>_b/_a` and `rlk_b/_a`, and the
         ternary `sk_s_coeff`, laid out as the reference's key objects hold
-        them (`rfhe_tpu/fhe/keys.py:36-60`)."""
+        them (`rfhe_tpu/fhe/keys.py:36-60`).  Keyswitch keys have shape
+        (n_groups, L + n_special, N) for this context's dnum; another shape
+        raises."""
         dev = self.device
-        self.sk = SecretKey(s_ntt=to_torch(state["sk_s_ntt"], dev),
-                            s_coeff=np.asarray(state["sk_s_coeff"], dtype=np.int64))
-        self.pk = PublicKey(b=to_torch(state["pk_b"], dev), a=to_torch(state["pk_a"], dev))
-        self._galois = {}
-        self._rlk = None
+        groups = _digit_groups(self.L, self.L if self.dnum is None else self.dnum)
+        want = (len(groups), self.ctx.L, self.params.n)
+
+        def ksk(stem: str) -> KeySwitchKey:
+            b, a = state[f"{stem}_b"], state[f"{stem}_a"]
+            if tuple(b.shape) != want or tuple(a.shape) != want:
+                raise ValueError(f"{stem}: key shape {tuple(b.shape)} / {tuple(a.shape)}, "
+                                 f"this context (dnum={self.dnum}) takes {want}")
+            return KeySwitchKey(b=to_torch(b, dev), a=to_torch(a, dev))
+
+        galois = {}
         for name in state:
             if name.startswith("galois_") and name.endswith("_b"):
                 g = int(name[len("galois_"):-2])
-                self._galois[g] = KeySwitchKey(
-                    b=to_torch(state[name], dev),
-                    a=to_torch(state[f"galois_{g}_a"], dev))
-        if "rlk_b" in state:
-            self._rlk = KeySwitchKey(b=to_torch(state["rlk_b"], dev),
-                                     a=to_torch(state["rlk_a"], dev))
+                galois[g] = ksk(f"galois_{g}")
+        rlk = ksk("rlk") if "rlk_b" in state else None
+        self.sk = SecretKey(s_ntt=to_torch(state["sk_s_ntt"], dev),
+                            s_coeff=np.asarray(state["sk_s_coeff"], dtype=np.int64))
+        self.pk = PublicKey(b=to_torch(state["pk_b"], dev), a=to_torch(state["pk_a"], dev))
+        self._galois, self._rlk = galois, rlk
 
     def rotation_galois_element(self, r: int) -> int:
         n = self.params.n
@@ -280,7 +298,8 @@ class CkksContext:
     def relinearize(self, ct: Ciphertext) -> Ciphertext:
         assert ct.size == 3
         d2_coeff = poly_intt(ct.c[2], self.ctx)
-        k0, k1 = keyswitch(d2_coeff.data, self.rlk, ct.level, self.ctx, self.L)
+        k0, k1 = keyswitch(d2_coeff.data, self.rlk, ct.level, self.ctx, self.L,
+                           dnum=self.dnum)
         c0 = poly_add(ct.c[0], RnsPoly(k0, True), self.ctx)
         c1 = poly_add(ct.c[1], RnsPoly(k1, True), self.ctx)
         return Ciphertext([c0, c1], ct.scale)
@@ -310,7 +329,8 @@ class CkksContext:
         c0g = poly_automorphism(ct.c[0], g, self.ctx)
         c1g = poly_automorphism(ct.c[1], g, self.ctx)
         c1_coeff = poly_intt(c1g, self.ctx)
-        k0, k1 = keyswitch(c1_coeff.data, ksk, ct.level, self.ctx, self.L)
+        k0, k1 = keyswitch(c1_coeff.data, ksk, ct.level, self.ctx, self.L,
+                           dnum=self.dnum)
         c0 = poly_add(c0g, RnsPoly(k0, True), self.ctx)
         return Ciphertext([c0, RnsPoly(k1, True)], ct.scale)
 

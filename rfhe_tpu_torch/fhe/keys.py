@@ -1,23 +1,28 @@
-"""Key generation and hybrid keyswitching with per-limb digits.
+"""Key generation and hybrid keyswitching, per-limb and grouped digits.
 
-Counterpart of `rfhe_tpu/fhe/keys.py` for dnum=None: one special prime p,
-digits D_j(c) = [c]_{q_j}, and keys over the basis (q_0..q_{L-1}, p)
-    b_j = −a_j·s + e_j + p·ẽ_j·s'   with [p·ẽ_j]_{q_i} = p·δ_ij.
-Every random draw is made on the host from the caller's
-np.random.Generator in the reference's order, so keys come out identical.
-Grouped digits (dnum != None) are not ported yet.
+Counterpart of `rfhe_tpu/fhe/keys.py`.  The L ciphertext limbs partition
+into dnum contiguous groups of α = ⌈L/dnum⌉; the basis carries α special
+primes with product P after the ciphertext primes.  Digit j is [c]_{Q_j}
+(Q_j the product of group j's primes) and key j over the full basis is
+    b_j = −a_j·s + e_j + P·ẽ_j·s'   with [P·ẽ_j]_{q_i} = P for i in group j,
+                                                          0 elsewhere.
+dnum=None is per-limb digits (α = 1, one special prime).  Every random draw
+is made on the host from the caller's np.random.Generator in the reference's
+order, so keys come out identical.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import to_torch
-from ..numth import shoup_precompute
-from ..ops.modarith import add_mod, mont_mul, mul_mod_shoup, reduce_mod, sub_mod
+from ..numth import mod_inv, shoup_precompute
+from ..ops.modarith import add_mod, mont_mul, mul_mod, mul_mod_shoup, reduce_mod, sub_mod
 from .rns import RnsContext, drop_limb
 
 
@@ -35,7 +40,8 @@ class PublicKey:
 
 @dataclass
 class KeySwitchKey:
-    """b, a: (n_digits, L_full, N) NTT domain over (q_0..q_{L-1}, p)."""
+    """b, a: (n_digits, L_full, N) NTT domain over the ciphertext primes
+    followed by the special primes."""
     b: torch.Tensor
     a: torch.Tensor
 
@@ -89,55 +95,112 @@ class KeyGen:
     def gen_keyswitch(self, sk: SecretKey, s_prime_ntt: torch.Tensor,
                       rng: np.random.Generator, dnum: Optional[int] = None
                       ) -> KeySwitchKey:
-        """Key switching s' -> s with per-limb digits (the reference's
-        dnum=None with one special prime): draws all the a's, then all the
-        e's, as `rfhe_tpu.fhe.keys.KeyGen.gen_keyswitch` does."""
+        """Key switching s' -> s (`rfhe_tpu.fhe.keys.KeyGen.gen_keyswitch`):
+        one key per digit group, all the a's drawn first, then all the e's.
+        dnum=None means ⌈L / n_special⌉ groups here, which is per-limb
+        digits with one special prime."""
         ctx = self.ctx
         L = self.n_ct_limbs
-        if dnum is not None or len(ctx.moduli) != L + 1:
-            raise NotImplementedError("only per-limb digits with one special "
-                                      "prime (dnum=None) are ported")
-        a = np.stack([_sample_uniform_rns(rng, ctx.moduli, ctx.n) for _ in range(L)])
+        n_sp = len(ctx.moduli) - L
+        if dnum is None:
+            dnum = -(-L // max(1, n_sp))
+        groups = _digit_groups(L, dnum)
+        P_sp = math.prod(ctx.moduli[L:])
+        a = np.stack([_sample_uniform_rns(rng, ctx.moduli, ctx.n) for _ in groups])
         e = np.stack([
             _rns_from_signed(_sample_gaussian(rng, ctx.n, self.sigma), ctx.moduli)
-            for _ in range(L)
+            for _ in groups
         ])
         plan = ctx.plan
         q, rinv = plan.qb(1), plan.rinvb(1)
         a_t = to_torch(a, ctx.device)
         b = sub_mod(plan.fwd(to_torch(e, ctx.device)), mont_mul(a_t, sk.s_ntt, q, rinv), q)
-        # + p·ẽ_l·s' on digit l's own limb l
-        p_sp = ctx.moduli[L]
-        pl = [p_sp % ctx.moduli[l] for l in range(L)]
-        diag = torch.arange(L, device=ctx.device)
+        # + P·ẽ_g·s' on the limbs l of each group g
+        gi_idx = ctx.index([gi for gi, grp in enumerate(groups) for _ in grp])
+        l_idx = ctx.index([l for grp in groups for l in grp])
+        pl = [P_sp % ctx.moduli[l] for l in range(L)]
         col = lambda vals: torch.tensor(vals, dtype=torch.int64, device=ctx.device)[:, None]
         ql = col(ctx.moduli[:L])
-        add_d = mul_mod_shoup(s_prime_ntt[:L], col(pl),
+        add_d = mul_mod_shoup(s_prime_ntt[l_idx], col(pl),
                               col([shoup_precompute(v, ctx.moduli[l]) for l, v in enumerate(pl)]),
                               ql)
-        b[diag, diag] = add_mod(b[diag, diag], add_d, ql)
+        b[gi_idx, l_idx] = add_mod(b[gi_idx, l_idx], add_d, ql)
         return KeySwitchKey(b=b, a=a_t)
+
+
+def _digit_groups(L: int, dnum: int) -> List[List[int]]:
+    """Partition limbs 0..L-1 into dnum contiguous groups of α = ceil(L/dnum)."""
+    alpha = -(-L // dnum)
+    return [list(range(g * alpha, min((g + 1) * alpha, L)))
+            for g in range(dnum) if g * alpha < L]
+
+
+@lru_cache(maxsize=4096)
+def _group_ext_consts(moduli: tuple, G: tuple, lim: tuple):
+    """Fast-base-extension constants for digit group G at the active basis
+    `lim` (`rfhe_tpu.fhe.keys._group_ext_consts`): tilde_l = (Q_G/q_l)^{-1}
+    mod q_l and W[l][i] = (Q_G/q_l) mod q_i, each with Shoup companions, as
+    uint32 arrays (tilde, tilde_s (α,); W, W_s (α, len(lim)))."""
+    QG = math.prod(moduli[l] for l in G)
+    tilde, tilde_s = [], []
+    W, W_s = [], []
+    for l in G:
+        hat = QG // moduli[l]
+        tl = mod_inv(hat % moduli[l], moduli[l])
+        tilde.append(tl)
+        tilde_s.append(shoup_precompute(tl, moduli[l]))
+        W.append([hat % moduli[i] for i in lim])
+        W_s.append([shoup_precompute(hat % moduli[i], moduli[i]) for i in lim])
+    return (np.array(tilde, dtype=np.uint32), np.array(tilde_s, dtype=np.uint32),
+            np.array(W, dtype=np.uint32), np.array(W_s, dtype=np.uint32))
+
+
+def _extend_group(d_coeff: torch.Tensor, G: List[int], lim: List[int],
+                  ctx: RnsContext) -> torch.Tensor:
+    """Fast base extension of the grouped digit [d]_{Q_G} to the basis `lim`
+    (`keys.py:268-295`): r'_l = d_l·tilde_l mod q_l, then for each target
+    limb i the sum Σ_l (r'_l mod q_i)·W[l,i] mod q_i.  As in the reference
+    the sum is not corrected for its multiple of Q_G.  Returns (len(lim), N).
+    Every factor is < 2^31, so r'_l·W[l,i] < 2^62 is exact in int64 and equals
+    (r'_l mod q_i)·W[l,i] mod q_i after one `%`; the Shoup companions of the
+    constants are not needed."""
+    tilde, _, W, _ = _group_ext_consts(tuple(ctx.moduli), tuple(G), tuple(lim))
+    tilde, W = to_torch(tilde, ctx.device), to_torch(W, ctx.device)
+    q = ctx.plan.tables.q
+    q_lim = q[ctx.index(lim)][:, None]
+    rprime = mul_mod(d_coeff[G[0]:G[-1] + 1], tilde[:, None], q[ctx.index(G)][:, None])
+    terms = mul_mod(rprime[:, None, :], W[:, :, None], q_lim)       # (α, n_lim, N)
+    return _sum_digits(terms, q_lim)
 
 
 def compute_digits(d_coeff: torch.Tensor, level: int, ctx: RnsContext,
                    n_ct_limbs: int, dnum: Optional[int] = None,
                    with_ecc: bool = False
                    ) -> Tuple[torch.Tensor, List[int], List[int]]:
-    """Digit decomposition + base extension for the keyswitch, single-limb
-    digits only (`rfhe_tpu.fhe.keys.compute_digits`, `keys.py:253-267`).
-    Returns (dig (active, n_lim, N) coefficient domain, used digit indices,
-    lim basis).  Digit l extends v = d[l] to every limb i of lim as v mod q_i,
-    which is v itself where q_l <= q_i: one broadcast `%` does all of it."""
-    if dnum is not None:
-        raise NotImplementedError("grouped digits (dnum != None) are not ported yet")
+    """Digit decomposition + base extension for the hybrid keyswitch
+    (`rfhe_tpu.fhe.keys.compute_digits`).  Returns (dig (n_used, n_lim, N)
+    coefficient domain, used group indices, lim basis).  dnum=None means
+    per-limb digits here.  A group with one active limb l extends v = d[l]
+    to every limb i of lim as v mod q_i, which is v itself where q_l <= q_i:
+    one broadcast `%` does all such groups at once.  A group with several
+    active limbs takes the fast base extension of `_extend_group`."""
     if with_ecc:
         raise NotImplementedError("with_ecc digits are not ported yet")
     L = n_ct_limbs
     active = level + 1
+    if dnum is None:
+        dnum = L
     lim = list(range(active)) + list(range(L, len(ctx.moduli)))
     q_lim = ctx.plan.tables.q[ctx.index(lim)]
-    dig = reduce_mod(d_coeff[:active, None, :], q_lim[None, :, None])
-    return dig, list(range(active)), lim
+    groups = [(gi, G) for gi, grp in enumerate(_digit_groups(L, dnum))
+              if (G := [l for l in grp if l < active])]
+    used = [gi for gi, _ in groups]
+    if all(len(G) == 1 for _, G in groups):
+        # α = 1 or one active limb: the digits are limbs 0..active-1 in order
+        return reduce_mod(d_coeff[:active, None, :], q_lim[None, :, None]), used, lim
+    digits = [reduce_mod(d_coeff[G[0]][None, :], q_lim[:, None]) if len(G) == 1
+              else _extend_group(d_coeff, G, lim, ctx) for _, G in groups]
+    return torch.stack(digits), used, lim
 
 
 def keyswitch(d_coeff: torch.Tensor, ksk: KeySwitchKey, level: int,
@@ -146,10 +209,12 @@ def keyswitch(d_coeff: torch.Tensor, ksk: KeySwitchKey, level: int,
     """Apply a keyswitch key to a coefficient-domain poly d (level+1, N).
     Returns (c0_delta, c1_delta) in the NTT domain over limbs 0..level
     (`rfhe_tpu.fhe.keys.keyswitch`): digits, one batched NTT, the dyadic MAC
-    against the key, the digit sum, then mod-down by the special prime."""
+    against the key, the digit sum, then mod-down by the special primes, last
+    to first, both accumulators in one batched `drop_limb` each."""
     if t is not None:
         raise NotImplementedError("BGV keyswitch (t) is not ported yet")
     L = n_ct_limbs
+    sp_idx = list(range(L, len(ctx.moduli)))
     active = level + 1
     dig, used, lim = compute_digits(d_coeff, level, ctx, L, dnum)
     sub_plan = ctx.plan.take(lim)
@@ -161,7 +226,9 @@ def keyswitch(d_coeff: torch.Tensor, ksk: KeySwitchKey, level: int,
     for k in (ksk.b, ksk.a):
         kk = k.index_select(0, used_idx).index_select(1, lim_idx)
         acc.append(_sum_digits(mont_mul(dig_ntt, kk, q, rinv), q))
-    out = drop_limb(torch.stack(acc), L, active, ctx)
+    out = torch.stack(acc)
+    for k_i in range(len(sp_idx) - 1, -1, -1):
+        out = drop_limb(out, sp_idx[k_i], list(range(active)) + sp_idx[:k_i], ctx)
     return out[0], out[1]
 
 

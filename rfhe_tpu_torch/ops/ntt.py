@@ -17,7 +17,8 @@ Both are computed as radix-2 butterfly networks: Cooley-Tukey forward on
 bit-reversed ψ powers (output in bit-reversed order), Gentleman-Sande
 inverse.  Slot p of the forward output is read from position brev(nu[p]);
 `pos` holds that index.  On a CUDA tensor `NttPlan.fwd/inv` launch the
-kernels of `ops/ntt_cuda.py`; on a CPU tensor they run the plain versions
+kernels of `ops/ntt_cuda.py` (one block per vector up to n = 16384, the
+two-pass large-ring form above); on a CPU tensor they run the plain versions
 below, which do the same butterflies with `(a*w) % q` on int64 tensors.
 """
 from __future__ import annotations
@@ -80,11 +81,13 @@ def _bit_reverse(n: int) -> np.ndarray:
 
 
 def _pow_table(base: int, count: int, q: int) -> np.ndarray:
-    out = np.empty(count, dtype=np.uint64)
-    v = 1
-    for i in range(count):
-        out[i] = v
-        v = (v * base) % q
+    """base^i mod q for i < count (a power of two), by doubling: the upper
+    half of each prefix is the lower half times base^len (products < 2^62)."""
+    out = np.ones(count, dtype=np.uint64)
+    m = 1
+    while m < count:
+        out[m:2 * m] = out[:m] * np.uint64(pow(base, m, q)) % np.uint64(q)
+        m *= 2
     return out
 
 
@@ -120,6 +123,7 @@ class _ChainTables:
     kernel_tw: torch.Tensor      # (Lf, 4, n) [ψ^brev, Shoup, ψ^-brev, Shoup]
     kernel_consts: torch.Tensor  # (Lf, 8) [q, R, R', n⁻¹R⁻¹, (n⁻¹R⁻¹)', 0, 0, 0]
     kernel_pos: torch.Tensor     # (n,) int32 brev(nu[p])
+    kernel_pos_inv: torch.Tensor  # (n,) int32 slot of network position j
     views: Dict[Tuple[int, ...], "NttPlan"] = field(default_factory=dict)
 
     @classmethod
@@ -161,6 +165,7 @@ class _ChainTables:
             pos=dev(pos), pos_inv=dev(pos_inv),
             kernel_tw=_bits32(tw).to(device), kernel_consts=_bits32(consts).to(device),
             kernel_pos=dev(pos.astype(np.int32)),
+            kernel_pos_inv=dev(pos_inv.astype(np.int32)),
         )
 
     def view(self, limbs: Tuple[int, ...]) -> "NttPlan":

@@ -161,8 +161,8 @@ def test_crt_to_words_matches_reference():
 
 def test_outside_the_slice_raises(pair):
     _, tc, _, port, _ = pair
-    with pytest.raises(NotImplementedError):
-        CkksContext(CkksParams.make(**PARAMS), seed=3, dnum=2, device="cpu")
+    with pytest.raises(ValueError):
+        CkksContext(CkksParams.make(**PARAMS), seed=3, dnum=0, device="cpu")
     with pytest.raises(NotImplementedError):
         tc.encrypt_seeded(*tc.encode(np.zeros(PARAMS["n"] // 2)), seed=1)
     d = port["encrypt"].c[0].data

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from rfhe_tpu_torch import profile_rotation
 from rfhe_tpu_torch.ops import ntt_cuda
 from rfhe_tpu_torch.ops.ntt import NttPlan
 from rfhe_tpu_torch.numth import find_ntt_primes
@@ -88,3 +89,23 @@ def test_build_location_is_inside_checkout():
     assert lib.name.startswith("libntt_") and lib.suffix == ".so"
     assert ntt_cuda.SOURCE == PKG / "csrc" / "ntt.cu"
     assert "arch=compute_90a,code=sm_90a" in ntt_cuda.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("kernel, row", [
+    ("(anonymous namespace)::ntt_fwd_col_kernel(long const*, unsigned int*)", "NTT forward kernels"),
+    ("(anonymous namespace)::ntt_inv_kernel(long const*, long*)", "NTT inverse kernels"),
+    ("void at::native::elementwise_kernel<remainder_kernel_cuda>", "aten::remainder (int64 %)"),
+    ("void at::native::index_select_large_index<long>", "gathers (index_select / index)"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::AUnaryFunctor<long, MulFunctor>>",
+     "aten::mul"),
+    ("Memcpy DtoD (Device -> Device)", "other elementwise (add, sub, where, compare, shift, copy)"),
+])
+def test_profile_rows(kernel, row):
+    assert profile_rotation.group_of(kernel) == row
+
+
+def test_profile_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        profile_rotation.profile_rotation(4096, None, 1)
