@@ -8,10 +8,12 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
   2. build: compile csrc/ntt.cu with nvcc and load it
   3. kernels vs plain: every NTT kernel form against its plain PyTorch version
      on the card, bit for bit: the one-block kernels at the N=4096 path's
-     shapes, both forms at n=16384 and 32768 and the large-ring form at
-     n=65536 at the large paths' shapes (per-limb and grouped digits, special
-     limbs, mod-down deltas, non-contiguous takes, 31-bit primes), and the
-     large-ring form at n=4096 against the one-block kernels
+     shapes; the one-block, two-pass and cluster kernels at n=16384 and 32768
+     and both large-ring kernels at n=65536 at the large paths' shapes
+     (per-limb and grouped digits, special limbs, mod-down deltas,
+     non-contiguous takes, 30- and 31-bit primes); batches that the polynomial
+     groups do not divide and a batch of 70000; and the large-ring kernels at
+     n=256 and 4096 against the one-block kernels
   4. N=4096 path: CKKS with 21 ciphertext primes and one special prime (the
      reference's bench.py configuration): encode, encrypt, rotate by 1,
      decrypt; multiply_relin, rescale, decrypt; the same seed on the CPU
@@ -25,7 +27,8 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
   7. one rotation each at N=16384 and N=32768, 21 + 1 limbs
   8. launch counts per rotation at each ring and for dnum=3
   9. times with CUDA events: each kernel form against its plain version at
-     (21, 22, n) and (3, 28, 65536), and warm rotations
+     every shape a rotation launches, (21, 22, n), (2, 21, n), (1, 21, n),
+     (2, 1, n) and (3, 28, 65536), and warm rotations
 
 The third-to-last line is the per-kernel JSON record, the second-to-last
 names the card and its power limit; the last line is
@@ -137,55 +140,75 @@ def test_vectors(plan: NttPlan, batch: int, seed: int) -> list:
 
 
 def forms_of(n: int) -> list:
-    """The splits of every form that ring n can take (0: one block)."""
+    """The selector of every form that ring n can take: the one-block
+    kernels (0) where the ring fits one block, and both large-ring kernels
+    at the ring's own split."""
     own = ntt_cuda.large_split(n)
-    return [own] if n > ntt_cuda.MAX_ONE_BLOCK_N else [0, own]
+    large = [(ntt_cuda.TWO_PASS, own), (ntt_cuda.CLUSTER, own)]
+    return large if n > ntt_cuda.MAX_ONE_BLOCK_N else [0] + large
 
 
-def form_of(n: int, split) -> str:
+def kind_of(plan: NttPlan, batch: int, split) -> str:
+    """'one_block', 'two_pass' or 'cluster': the kernels a launch takes."""
+    return ntt_cuda.resolve_split(plan.n, split, batch * plan.L)[0]
+
+
+def form_of(kind: str) -> str:
     """'' for the one-block kernels, '_large' for the large-ring form."""
-    return "_large" if (ntt_cuda.default_split(n) if split is None else split) else ""
+    return "" if kind == "one_block" else "_large"
 
 
 def kernel_cases() -> list:
     """(name, plan, batch, splits): `splits` lists the forms to hold against
-    the plain versions, None being the one the plan takes by itself."""
+    the plain versions, None being the one the launch takes by itself."""
+    two_pass, cluster = ntt_cuda.TWO_PASS, ntt_cuda.CLUSTER
     chain = basis(4096, 1)
     full = NttPlan.make(4096, chain, "cuda")
     special = len(chain) - 1
+    small = NttPlan.make(256, make_prime_chain(256, [30] * 3), "cuda")
     cases = [
-        ("n=4096 (21, 22) keyswitch digits", full, 21, [None, 6]),
-        ("n=4096 (2, 1) special limb", full.take([special]), 2, [None, 7]),
+        ("n=4096 (21, 22) keyswitch digits", full, 21, [None, (two_pass, 6), (cluster, 6)]),
+        ("n=4096 (2, 1) special limb", full.take([special]), 2, [None, (two_pass, 8), (cluster, 4)]),
         ("n=4096 (2, 21) mod-down delta", full.slice(special), 2, [None]),
-        ("n=4096 (3, 3) non-contiguous take", full.take([special, 0, 7]), 3, [None, 5]),
-        ("n=2048 31-bit (3, 3)", NttPlan.make(2048, make_prime_chain(2048, [31] * 3), "cuda"), 3, [None]),
-        ("n=256 30-bit (3, 3)", NttPlan.make(256, make_prime_chain(256, [30] * 3), "cuda"), 3, [None, 1, 7]),
+        ("n=4096 (3, 3) non-contiguous take", full.take([special, 0, 7]), 3, [None, (two_pass, 5), (cluster, 5)]),
+        ("n=2048 31-bit (3, 3)", NttPlan.make(2048, make_prime_chain(2048, [31] * 3), "cuda"), 3,
+         [None, (two_pass, 4), (cluster, 7)]),
+        ("n=256 30-bit (3, 3)", small, 3, [None, (two_pass, 4), (cluster, 4), (two_pass, 7), (cluster, 7)]),
+        ("n=256 (70000, 1) beyond grid.y", small.take([1]), 70000, [(two_pass, 4), (cluster, 5)]),
     ]
     for n in LARGE_RINGS:
-        splits = forms_of(n)   # both forms where the ring fits one block
+        splits = [None] + forms_of(n)
         grouped = NttPlan.make(n, basis(n, 7), "cuda")       # 21 + 7 limbs
+        mixed = grouped.take([27, 3, 21, 0, 24, 20])
         cases += [
             (f"n={n} (21, 22) per-limb digits", grouped.slice(22), 21, splits),
             (f"n={n} (2, 1) special limb", grouped.take([21]), 2, splits),
             (f"n={n} (2, 21) mod-down delta", grouped.slice(21), 2, splits),
-            (f"n={n} (3, 6) take with specials", grouped.take([27, 3, 21, 0, 24, 20]), 3, splits),
+            (f"n={n} (1, 21) c1", grouped.slice(21), 1, splits),
+            (f"n={n} (3, 6) take with specials", mixed, 3, splits),
             (f"n={n} (3, 28) grouped digits", grouped, 3, splits),
+            # batches that the polynomial groups do not divide (loops of uneven length)
+            (f"n={n} (23, 6) uneven groups", mixed, 23, forms_of(n)[-2:]),
+            (f"n={n} (5, 6) uneven groups", mixed, 5, forms_of(n)[-2:]),
+            (f"n={n} 31-bit (3, 3)", NttPlan.make(n, make_prime_chain(n, [31] * 3), "cuda"), 3, splits),
         ]
-    cases.append(("n=65536 31-bit (3, 3)",
-                  NttPlan.make(65536, make_prime_chain(65536, [31] * 3), "cuda"), 3, [None, 7]))
     return cases
 
 
 def phase_kernels() -> dict:
     err = dict.fromkeys(ntt_cuda.FORMS, 0)
     checked = dict.fromkeys(ntt_cuda.FORMS, 0)
+    kinds = set()
     for i, (name, plan, batch, splits) in enumerate(kernel_cases()):
-        for vname, xv in test_vectors(plan, batch, seed=i):
+        vectors = test_vectors(plan, batch, seed=i)
+        for vname, xv in vectors if batch <= 64 else vectors[:1]:
             x = torch.from_numpy(xv).cuda()
             y_ref = ntt_fwd_reference(x, plan)
             back_ref = ntt_inv_reference(y_ref, plan)
             for split in splits:
-                large = form_of(plan.n, split)
+                kind = kind_of(plan, batch, split)
+                large = form_of(kind)
+                kinds.add((kind, plan.n))
                 y = ntt_cuda.fwd(x, plan, split)
                 back = ntt_cuda.inv(y_ref, plan, split)
                 torch.cuda.synchronize()
@@ -195,8 +218,7 @@ def phase_kernels() -> dict:
                 err["inv" + large] = max(err["inv" + large], e_i)
                 checked["fwd" + large] += 1
                 checked["inv" + large] += 1
-                form = f"large-ring split 2^{split if split else ntt_cuda.default_split(plan.n)}" \
-                    if large else "one-block"
+                form = kind if split is None or not large else f"{kind} 2^{split[1]}"
                 print(f"[kernels] {name:36s} {vname:8s} {form:22s} fwd err {e_f} inv err {e_i} "
                       f"inv(fwd(x)) == x: {torch.equal(back, x)}")
                 if not (e_f == 0 and e_i == 0 and torch.equal(back, x)):
@@ -204,6 +226,10 @@ def phase_kernels() -> dict:
     print(f"[kernels] comparisons per kernel form: {checked}, max abs err {err} (tolerance 0)")
     if min(checked.values()) == 0:
         raise RuntimeError(f"a kernel form was never compared: {checked}")
+    missing = [(k, n) for n in LARGE_RINGS for k in (ntt_cuda.TWO_PASS, ntt_cuda.CLUSTER)
+               if (k, n) not in kinds]
+    if missing:
+        raise RuntimeError(f"large-ring kernels never compared: {missing}")
     return err
 
 
@@ -283,7 +309,7 @@ def drive_counted(tag: str, what: str, params: dict, dnum=None, twice: bool = Fa
         if not e <= limit:
             raise RuntimeError(f"{what}: {name} fails its limit")
     print(f"[{tag}] kernel launches on this path: {launches}; __global__ launches: {passes}")
-    large = form_of(params["n"], None)
+    large = "_large" if ntt_cuda.default_split(params["n"]) else ""
     if launches["fwd" + large] == 0 or launches["inv" + large] == 0:
         raise RuntimeError(f"{what} did not launch both kernels: {launches}")
     return ctx, arrays, launches
@@ -354,7 +380,7 @@ def phase_mid_rings() -> dict:
               f"{e:.3e} (limit {LIMITS[n][0]:g}), launches {launches} ({time.perf_counter() - t0:.1f} s)")
         if not e <= LIMITS[n][0]:
             raise RuntimeError(f"N={n}: rotation does not decrypt to the rotated slots")
-        large = form_of(n, None)
+        large = "_large" if ntt_cuda.default_split(n) else ""
         if launches["fwd" + large] == 0 or launches["inv" + large] == 0:
             raise RuntimeError(f"N={n}: the rotation did not launch both kernels: {launches}")
         out[n] = (ctx, ct, launches)
@@ -402,9 +428,15 @@ def bound_ms(batch: int, L: int, n: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+L2_BYTES = 50e6                  # the card's L2 cache
+
+
 def time_forms(c: str, plan: NttPlan, batch: int, splits: list) -> dict:
     """Kernel (each form of `splits`) and plain times of both directions at
-    (batch, L, n), in the order plain, kernel, kernel, plain."""
+    (batch, L, n), in the order plain, kernel, kernel, plain.  `cuda_ms`
+    repeats one input, so a shape whose working set (input, output and the
+    two passes' uint32 intermediate) is under the L2's 50 MB is served from
+    the cache and the HBM bound is not what binds it: each line says so."""
     q = plan.q_arr[:, None]
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randint(0, 1 << 62, (batch, plan.L, plan.n), device="cuda", generator=g) % q
@@ -418,12 +450,17 @@ def time_forms(c: str, plan: NttPlan, batch: int, splits: list) -> dict:
         ks = {s: [cuda_ms(lambda: kern(data, plan, s)) for _ in range(2)] for s in splits}
         p2 = cuda_ms(lambda: plain(data, plan), plain_reps)
         for s, (k1, k2) in ks.items():
-            form = f"large-ring 2^{s}" if s else "one-block"
-            print(f"[times] {c}: {d} NTT ({batch}, {plan.L}, {plan.n}) {form}: kernel {k1:.4f} / "
+            kind = kind_of(plan, batch, s)
+            working = x.numel() * (20 if kind == ntt_cuda.TWO_PASS else 16)
+            in_l2 = working < L2_BYTES
+            taken = " (default)" if kind == kind_of(plan, batch, None) else ""
+            print(f"[times] {c}: {d} NTT ({batch}, {plan.L}, {plan.n}) {kind}{taken}: kernel {k1:.4f} / "
                   f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms (plain, kernel, kernel, plain), "
-                  f"bound {b_ms:.4f} ms by {b_by}")
-            out[d, s] = {"shape": [batch, plan.L, plan.n], "ms": (k1 + k2) / 2,
-                         "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms, "bound_by": b_by}
+                  f"bound {b_ms:.4f} ms by {b_by}, share of bound {200 * b_ms / (k1 + k2):.0f}%, "
+                  f"working set {working / 1e6:.1f} MB {'under' if in_l2 else 'over'} the L2")
+            out[d, kind] = {"shape": [batch, plan.L, plan.n], "form": kind, "ms": (k1 + k2) / 2,
+                            "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms, "bound_by": b_by,
+                            "default": bool(taken), "working_set_in_l2": in_l2}
     return out
 
 
@@ -445,35 +482,42 @@ def phase_times(ctxs: dict, cts: dict, c: str) -> dict:
         us = warm_rotate_us(ctxs[name], cts[name], 10)
         print(f"[times] {c}: warm rotate {name}, 21 ciphertext limbs: {us:.1f} us per rotation "
               f"(10 iterations)")
-    times = {4096: time_forms(c, NttPlan.make(4096, basis(4096, 1), "cuda"), 21, [0])}
+    bench = NttPlan.make(4096, basis(4096, 1), "cuda")
+    times = {"4096": time_forms(c, bench, 21, [0]),
+             "4096 mod-down delta": time_forms(c, bench.slice(21), 2, [0]),
+             "4096 c1": time_forms(c, bench.slice(21), 1, [0]),
+             "4096 special limb": time_forms(c, bench.take([21]), 2, [0])}
     for n in LARGE_RINGS:
         forms = forms_of(n)
         grouped = NttPlan.make(n, basis(n, 7), "cuda")
-        times[n] = time_forms(c, grouped.slice(22), 21, forms)
-        if n <= ntt_cuda.MAX_ONE_BLOCK_N:
-            # the small shapes of the mod-down, where the form's choice may differ
-            times[n, "special"] = time_forms(c, grouped.take([21]), 2, forms)
+        # the shapes one rotation launches: digits, mod-down delta, c1, special limb
+        times[f"{n}"] = time_forms(c, grouped.slice(22), 21, forms)
+        times[f"{n} mod-down delta"] = time_forms(c, grouped.slice(21), 2, forms)
+        times[f"{n} c1"] = time_forms(c, grouped.slice(21), 1, forms)
+        times[f"{n} special limb"] = time_forms(c, grouped.take([21]), 2, forms)
         if n == 65536:
-            times["grouped"] = time_forms(c, grouped, DNUM, forms)
+            times["65536 grouped digits"] = time_forms(c, grouped, DNUM, forms)
     return times
 
 
 def kernel_records(err: dict, launches: dict, times: dict) -> list:
-    """One record per kernel form at its path's keyswitch shape, with the
-    other shapes timed in this run under `other_shapes`."""
-    split = ntt_cuda.large_split(65536)
+    """One record per kernel form at its path's keyswitch shape, in the form
+    that shape takes by itself, with every other shape and form timed in this
+    run under `other_shapes`."""
     records = []
     for d in ("fwd", "inv"):
-        for large, head in (("", times[4096][d, 0]), ("_large", times[65536][d, split])):
-            others = [dict(v, form="large-ring" if s else "one-block", of=str(key))
-                      for key, group in times.items() for (dd, s), v in group.items()
-                      if dd == d and bool(s) == bool(large) and v is not head]
+        for large, key in (("", "4096"), ("_large", "65536")):
+            head = next(v for (dd, _), v in times[key].items() if dd == d and v["default"])
+            others = [dict(v, of=name) for name, group in times.items()
+                      for (dd, kind), v in group.items()
+                      if dd == d and form_of(kind) == large and v is not head]
             records.append({"name": f"ntt_{d}{large}", "route": "cuda", "source": SOURCE,
                             "replaces": REPLACES[d], "launches": launches[d + large],
                             "max_abs_err": err[d + large], "ms": head["ms"],
                             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                             "bound_by": head["bound_by"], "library_ms": None,
-                            "shape": head["shape"], "other_shapes": others})
+                            "shape": head["shape"], "form": head["form"],
+                            "other_shapes": others})
     return records
 
 

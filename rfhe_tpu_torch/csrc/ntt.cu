@@ -1,11 +1,12 @@
 // Negacyclic NTT kernels for Hopper (sm_90a), in two forms: one CTA per
 // (poly, limb) with the whole vector in shared memory, and a large-ring form
-// in two passes through global memory.
+// that splits the vector n = na·nb over the CTAs of a thread-block cluster
+// (one trip through global memory) or over two passes.
 //
 // Replace the two Pallas kernels of the JAX package:
-//   rfhe_ntt_fwd, rfhe_ntt_fwd_col + rfhe_ntt_fwd_row
+//   rfhe_ntt_fwd, rfhe_ntt_fwd_cluster, rfhe_ntt_fwd_col + rfhe_ntt_fwd_row
 //                 <- rfhe_tpu/ops/ntt_fused.py:_fwd_kernel
-//   rfhe_ntt_inv, rfhe_ntt_inv_row + rfhe_ntt_inv_col
+//   rfhe_ntt_inv, rfhe_ntt_inv_cluster, rfhe_ntt_inv_row + rfhe_ntt_inv_col
 //                 <- rfhe_tpu/ops/ntt_fused.py:_inv_kernel
 // Those run a four-step transform on int8 digit matmuls for the TPU's MXU.
 // The map they compute is fixed and exact, so these kernels compute it
@@ -33,12 +34,15 @@
 // stage barriers and the shared-memory traffic of each stage), which is
 // why it runs 512 threads per CTA and keeps several CTAs resident per SM.
 // Above 48 KB of shared memory one to three CTAs are resident per SM and run
-// 1024 threads: at n = 16384 that is still the faster form on an H100, at
-// n = 32768 (one CTA per SM, 15 serial stages) the large-ring form below is;
-// n = 65536 (256 KB) does not fit and has no choice.
+// 1024 threads; there (n = 16384 and 32768) the large-ring form below is the
+// faster on an H100 and the one a ring takes by itself, and the one-block
+// form stays selectable.  n = 65536 (256 KB) does not fit one block.
 
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -150,192 +154,669 @@ ntt_inv_kernel(const int64_t* __restrict__ y, int64_t* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// Large-ring form: n = na·nb, two passes through global memory.
+// Large-ring form: n = na·nb (element j = r·nb + c), 16 <= na <= 256,
+// 2 <= nb <= 256, n >= 256.
 //
-// The radix-2 network splits at n = na·nb (element j = r·nb + c).  The first
-// log2(na) Cooley-Tukey stages pair elements of one column c (distance a
-// multiple of nb) with twiddles that depend on the row pair only; the last
-// log2(nb) stages stay inside a contiguous row of nb elements.  So the forward
-// transform is a column pass (a size-na network down every column, on the
-// first na entries of the same ψ table), a uint32 intermediate in global
-// memory, and a row pass that finishes the network on contiguous chunks,
-// applies R and scatters slot pos_inv[j] = nu⁻¹(brev(j)).  The inverse mirrors
-// it: gather through pos_inv, row pass of Gentleman-Sande stages, intermediate,
-// column pass, n⁻¹R⁻¹ at the store.  Tables, arithmetic and stage order are
-// those of the one-block kernels, so the outputs are bit-identical.
+// The radix-2 network splits at n = na·nb.  The stages that pair elements
+// 2^h apart with h >= log2(nb) stay inside a column (the column phase, a
+// size-na network whose twiddles depend on the row pair only); the stages
+// with h < log2(nb) stay inside a row (the row phase).  Forward runs the
+// column phase first (Cooley-Tukey, h descending), inverse the row phase
+// first (Gentleman-Sande, h ascending).  Tables, arithmetic and the order of
+// the butterflies inside a stage's dependencies are those of the one-block
+// kernels, and residues stay canonical, so the outputs are bit-identical.
 //
-// What bounds it on this card: bytes.  A transform must read 8 and write 8
-// bytes per int64 element; this form adds 4 + 4 for the intermediate
-// (24 against 16), which stays in the 50 MB L2 only for small batches.  The
-// arithmetic (n/2·log2 n Shoup butterflies) is several times below the
-// integer rate that those bytes allow.  What the design does about it: the
-// column pass holds a tile of `C` adjacent columns × na rows, so every global
-// access is a run of C consecutive words (256 B at C = 32) and consecutive
-// threads hit consecutive shared-memory banks; the intermediate is uint32,
-// half the width of the residues; each pass keeps its tile in shared memory
-// for all of its stages, so global memory is touched once per pass.  The slot
-// scatter of the forward row pass (gather in the inverse) goes through a
-// table and writes 8-byte words 64 B apart inside one 1-2 KB output row;
-// L2 merges them.
+// What bounds it on this card: bytes first, 32-bit integer instructions
+// close behind.  A transform must read 8 and write 8 bytes per int64 element;
+// a plain copy of (21, 22, 65536) runs at 2.98 TB/s on an H100.  The
+// n/2·log2 n Shoup butterflies run on the integer pipes (64 lanes per SM),
+// where 12 instructions a butterfly take about two thirds of the time the
+// bytes take.  So the design is about moving each byte once, in full
+// sectors, about keeping those moves in flight while the butterflies run,
+// and about fewer instructions per butterfly:
 //
-// tmp:     (B, L, n) uint32 intermediate, natural order j = r·nb + c
-// pos_inv: (n,) int32, slot of network position j
-// log_c:   column tile width C = 2^log_c <= nb, na·C·4 bytes of shared memory
-// log_chunk: row-pass chunk 2^log_chunk, a multiple of nb, <= n
-// Grid: x = limb·tiles + tile, y = poly.
+//  * Butterflies in registers.  A thread holds 16 elements and runs up to
+//    four stages on them (a "round").  A phase is two rounds with one
+//    exchange through shared memory between them, one barrier instead of
+//    eight.  A round's elements are j = j0 + (e << hb), e = 0..15: register
+//    bit i is bit hb + i of j, so the stage with distance 2^h is the register
+//    distance 2^(h-hb).  The row exchange is padded by one word in 16 and the
+//    column exchange keeps 32 adjacent columns in consecutive banks: neither
+//    has a bank conflict.
+//  * Twiddles resident across polynomials.  A CTA owns one (limb, tile) and
+//    loops over the polynomials b = blockIdx.y, blockIdx.y + gridDim.y, ...
+//    The twiddle of a butterfly depends on (limb, position) only, so the
+//    thread's 15 (w, w') pairs of a round are fetched once: into registers
+//    where every thread's differ (the row phase's last four stages), into
+//    shared memory where a warp shares them (read as a broadcast).
+//  * Loads in flight while a tile computes.  The next polynomial's 16 words
+//    are loaded into registers before the current one's rounds run; only the
+//    low word of each int64 residue is loaded.
+//  * Contiguous slot rows.  Network position j holds slot
+//    p = brev(j / n1)·n1 + brev(j mod n1) (n1 the slot order's split).  The
+//    kernels compute it with __brev; there is no slot table.  With nb = n1,
+//    the form's own split from n = 16384 up, row r is slot row brev(r) and a
+//    warp stores two 128-byte runs of it straight from registers.
+//  * One trip through device memory (the cluster kernels).  A thread-block
+//    cluster of nb/C CTAs (C = 16: 16 CTAs at nb = 256, above the portable 8,
+//    which the H100 takes with an opt-in) holds one (poly, limb) vector in
+//    its CTAs' shared memory.  Each CTA runs the first phase on its tile and
+//    pushes the result into the shared memory of the CTAs that own it in the
+//    second phase (distributed shared memory), across a split cluster
+//    barrier.  16 bytes per element and one launch.  The two-pass kernels do
+//    the same phases with a uint32 intermediate in global memory between
+//    them (24 bytes per element, two launches).  On an H100 the cluster
+//    kernels win or draw for launches of up to about a hundred vectors and
+//    the two passes win above: a cluster's CTAs run in step, polynomial by
+//    polynomial, and what a CTA does between two barriers (loads, 64
+//    butterflies a thread, stores) overlaps little, while the passes' CTAs
+//    are independent and each does half the arithmetic per byte.
+//    `ops/ntt_cuda.py` says which kernels a launch takes.
+//  * Lazy butterflies.  For q < 2^30 the butterflies skip the conditional
+//    corrections (see mul_shoup_lazy): 7 instructions instead of 12.
+//
+// Geometry, checked by the caller: C = 2^log_c columns per column tile (at
+// most 32 in the two passes, 16 in a cluster), na·C/16 threads; the row pass works on chunks of 2^log_chunk
+// consecutive words (a multiple of 256), chunk/16 threads.  Grid: x = limb ·
+// tiles + tile (the cluster: consecutive tiles of one limb), y = polynomial
+// group.
 // ---------------------------------------------------------------------------
 
-constexpr int kPassThreads = 512;
+constexpr int kLargeThreads = 512;   // 256 rows x 32 columns / 16, or a chunk of 8192
+constexpr int kSlots = 15;           // twiddles of a round: 1 + 2 + 4 + 8
 
-__global__ void __launch_bounds__(kPassThreads)
+// Bit t set: the round whose register bit 0 is bit hb of j runs its stage t
+// (register distance 8 >> t, h = hb + 3 - t), for the stages h_lo <= h <= h_hi.
+__device__ __forceinline__ int stage_mask(int hb, int h_lo, int h_hi) {
+  int m = 0;
+  for (int t = 0; t < 4; ++t) {
+    const int h = hb + 3 - t;
+    if (h >= h_lo && h <= h_hi) m |= 1 << t;
+  }
+  return m;
+}
+
+// Twiddle slot k of a round on the elements j0 + (e << hb): stage
+// t = floor(log2(k + 1)), group g = k + 1 - 2^t, whose lower elements start at
+// e = g << (4 - t).  The stage with distance 2^h takes table entry
+// 2^(log_n-1-h) + (j >> (h+1)), in both directions.
+__device__ __forceinline__ uint2 load_tw(const uint32_t* __restrict__ w,
+                                         const uint32_t* __restrict__ ws,
+                                         int log_n, int j0, int hb, int mask, int k) {
+  const int t = 31 - __clz(k + 1);
+  if (!((mask >> t) & 1)) return make_uint2(0u, 0u);
+  const int e = (k + 1 - (1 << t)) << (4 - t);
+  const int h = hb + 3 - t;
+  const int idx = (1 << (log_n - 1 - h)) + ((j0 + (e << hb)) >> (h + 1));
+  return make_uint2(w[idx], ws[idx]);
+}
+
+// Twiddles that several threads share, into shared memory: `reps` rounds of
+// kSlots each, round i on the elements j_base + i·j_step + (e << hb).
+__device__ __forceinline__ void stage_tw(uint2* dst, int reps, int j_base, int j_step,
+                                         int hb, int mask,
+                                         const uint32_t* __restrict__ w,
+                                         const uint32_t* __restrict__ ws, int log_n) {
+  for (int i = threadIdx.x; i < reps * kSlots; i += blockDim.x)
+    dst[i] = load_tw(w, ws, log_n, j_base + (i / kSlots) * j_step, hb, mask, i % kSlots);
+}
+
+// Lazy butterflies (Harvey): for q < 2^30 residues may stay in [0, 4q)
+// (forward) or [0, 2q) (inverse) between stages, which drops the conditional
+// corrections of the strict butterflies: 4 additions beside the 3
+// multiplications instead of 9.  The lazy Shoup product takes any 32-bit x to
+// [0, 2q); the exit factor's strict product makes the result canonical, so
+// the outputs are those of the strict butterflies bit for bit.  Limbs with
+// q >= 2^30 take the strict ones.
+__device__ __forceinline__ uint32_t mul_shoup_lazy(uint32_t x, uint32_t w,
+                                                   uint32_t w_shoup, uint32_t q) {
+  return x * w - __umulhi(x, w_shoup) * q;
+}
+
+// Up to four Cooley-Tukey stages on 16 registers, distance 8, 4, 2, 1.
+template <bool LAZY>
+__device__ __forceinline__ void ct_round(uint32_t (&a)[16], const uint2* tw, int mask,
+                                         uint32_t q) {
+#ifdef RFHE_NTT_SKIP_BUTTERFLIES   // timing only (time_ntt.py): what the data movement alone takes
+  mask = 0;
+#endif
+  const uint32_t q2 = 2 * q;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if ((mask >> t) & 1) {
+      const int d = 8 >> t;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int g = k >> (3 - t);
+        const int e = (g << (4 - t)) + (k & (d - 1));
+        const uint2 w = tw[(1 << t) - 1 + g];
+        if (LAZY) {                       // a[e], a[e+d] in [0, 4q) before and after
+          const uint32_t u = min(a[e], a[e] - q2);
+          const uint32_t v = mul_shoup_lazy(a[e + d], w.x, w.y, q);
+          a[e] = u + v;
+          a[e + d] = u - v + q2;
+        } else {
+          const uint32_t u = a[e];
+          const uint32_t v = mul_shoup(a[e + d], w.x, w.y, q);
+          a[e] = add_q(u, v, q);
+          a[e + d] = sub_q(u, v, q);
+        }
+      }
+    }
+  }
+}
+
+// Up to four Gentleman-Sande stages on 16 registers, distance 1, 2, 4, 8.
+template <bool LAZY>
+__device__ __forceinline__ void gs_round(uint32_t (&a)[16], const uint2* tw, int mask,
+                                         uint32_t q) {
+#ifdef RFHE_NTT_SKIP_BUTTERFLIES   // timing only (time_ntt.py): what the data movement alone takes
+  mask = 0;
+#endif
+  const uint32_t q2 = 2 * q;
+#pragma unroll
+  for (int t = 3; t >= 0; --t) {
+    if ((mask >> t) & 1) {
+      const int d = 8 >> t;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int g = k >> (3 - t);
+        const int e = (g << (4 - t)) + (k & (d - 1));
+        const uint2 w = tw[(1 << t) - 1 + g];
+        const uint32_t u = a[e], v = a[e + d];
+        if (LAZY) {                       // a[e], a[e+d] in [0, 2q) before and after
+          const uint32_t sum = u + v;
+          a[e] = min(sum, sum - q2);
+          a[e + d] = mul_shoup_lazy(u - v + q2, w.x, w.y, q);
+        } else {
+          a[e] = add_q(u, v, q);
+          a[e + d] = mul_shoup(sub_q(u, v, q), w.x, w.y, q);
+        }
+      }
+    }
+  }
+}
+
+// Slot of network position j: brev(j / n1)·n1 + brev(j mod n1).
+__device__ __forceinline__ int slot_of(int j, int log_n, int log_n1) {
+  const int lo = j & ((1 << log_n1) - 1), hi = j >> log_n1;
+  return (int)((__brev((unsigned)hi) >> (32 - (log_n - log_n1))) << log_n1) |
+         (int)(__brev((unsigned)lo) >> (32 - log_n1));
+}
+
+__device__ __forceinline__ uint32_t low_word(const int64_t* __restrict__ p, size_t i) {
+  return reinterpret_cast<const uint32_t*>(p)[2 * i];
+}
+
+// The geometry and the tables of one CTA.
+struct Large {
+  int log_n, log_na, log_nb, log_n1;
+  int l;                       // limb of this CTA
+  uint32_t q;
+  bool lazy;                   // q < 2^30: the lazy butterflies
+  const uint32_t* w;           // the direction's twiddle row of the limb
+  const uint32_t* ws;          // and its Shoup companions
+  const uint32_t* c;           // the limb's constants
+};
+
+__device__ __forceinline__ Large large_of(const uint32_t* __restrict__ tw,
+                                          const uint32_t* __restrict__ consts,
+                                          const int32_t* __restrict__ limbs, int l,
+                                          int log_n, int log_na, int log_n1,
+                                          bool inverse) {
+  Large g;
+  g.log_n = log_n; g.log_na = log_na; g.log_nb = log_n - log_na; g.log_n1 = log_n1;
+  g.l = l;
+  const int lid = limbs[l];
+  g.w = tw + ((size_t)lid * 4 + (inverse ? 2 : 0)) * ((size_t)1 << log_n);
+  g.ws = g.w + ((size_t)1 << log_n);
+  g.c = consts + (size_t)lid * 8;
+  g.q = g.c[0];
+  g.lazy = g.q < (1u << 30);
+  return g;
+}
+
+// ---- column phase ----------------------------------------------------------
+// A tile of C = 2^log_c adjacent columns x na rows; thread (xr, c) with c
+// fastest.  "hi" round: rows (e << (S-4)) | xr, the four highest row bits in
+// registers; "lo" round: rows xr·16 + e.  S = log2(na) >= 4.
+struct ColThread {
+  int xr, c, mask_hi, mask_lo;
+  const uint2* tw_hi;
+  const uint2* tw_lo;
+};
+
+// Shared memory: [kSlots hi][(na/16)·kSlots lo] uint2.  Returns its size in
+// uint32 words.
+__device__ __forceinline__ int col_setup(const Large& g, int log_c, bool inverse,
+                                         uint32_t* sm, ColThread& th) {
+  const int S = g.log_na, reps = 1 << (S - 4);
+  th.xr = threadIdx.x >> log_c;
+  th.c = threadIdx.x & ((1 << log_c) - 1);
+  // forward: hi runs all four, lo the stages below them; inverse: lo runs all
+  // four, hi the stages above them
+  th.mask_hi = inverse ? stage_mask(g.log_nb + S - 4, g.log_nb + 4, g.log_n - 1) : 15;
+  th.mask_lo = inverse ? 15 : stage_mask(g.log_nb, g.log_nb, g.log_nb + S - 5);
+  uint2* tws = reinterpret_cast<uint2*>(sm);
+  stage_tw(tws, 1, 0, 0, g.log_nb + S - 4, th.mask_hi, g.w, g.ws, g.log_n);
+  stage_tw(tws + kSlots, reps, 0, 16 << g.log_nb, g.log_nb, th.mask_lo, g.w, g.ws, g.log_n);
+  th.tw_hi = tws;
+  th.tw_lo = tws + kSlots * (1 + th.xr);
+  return 2 * kSlots * (1 + reps);
+}
+
+__device__ __forceinline__ int col_row_hi(const Large& g, const ColThread& th, int e) {
+  return (e << (g.log_na - 4)) | th.xr;
+}
+
+__device__ __forceinline__ int col_row_lo(const ColThread& th, int e) {
+  return th.xr * 16 + e;
+}
+
+// Word of (row r, column c of the tile) in a tile buffer.  32 columns fill
+// the banks; a narrower tile is padded by 16 words every 16 rows, so that the
+// rows xr·16 + e of the threads of a warp fall into different banks.
+__device__ __forceinline__ int col_at(int r, int c, int log_c) {
+  return (r << log_c) + c + (log_c < 5 ? (r >> 4) << 4 : 0);
+}
+
+__device__ __host__ __forceinline__ int tile_words(int log_na, int log_c) {
+  return (1 << (log_na + log_c)) + (log_c < 5 ? 1 << log_na : 0);
+}
+
+// a: rows of the hi round on entry, rows of the lo round on exit.
+template <bool LAZY>
+__device__ __forceinline__ void fwd_col_phase(uint32_t (&a)[16], uint32_t* buf,
+                                              const Large& g, const ColThread& th,
+                                              int log_c) {
+  ct_round<LAZY>(a, th.tw_hi, th.mask_hi, g.q);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) buf[col_at(col_row_hi(g, th, e), th.c, log_c)] = a[e];
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < 16; ++e) a[e] = buf[col_at(col_row_lo(th, e), th.c, log_c)];
+  ct_round<LAZY>(a, th.tw_lo, th.mask_lo, g.q);
+}
+
+// a: rows of the lo round on entry, rows of the hi round on exit.
+template <bool LAZY>
+__device__ __forceinline__ void inv_col_phase(uint32_t (&a)[16], uint32_t* buf,
+                                              const Large& g, const ColThread& th,
+                                              int log_c) {
+  gs_round<LAZY>(a, th.tw_lo, th.mask_lo, g.q);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) buf[col_at(col_row_lo(th, e), th.c, log_c)] = a[e];
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < 16; ++e) a[e] = buf[col_at(col_row_hi(g, th, e), th.c, log_c)];
+  gs_round<LAZY>(a, th.tw_hi, th.mask_hi, g.q);
+}
+
+// ---- row phase -------------------------------------------------------------
+// A chunk of consecutive words starting at `base`; thread x.  "hi" round:
+// local words (x/16)·256 + e·16 + x%16 (bits 4..7 in registers); "lo" round:
+// local words x·16 + e.  The lo round's twiddles differ for every thread and
+// live in registers; the hi round's are shared by 16 threads.
+struct RowThread {
+  int mask_hi, mask_lo;
+  const uint2* tw_hi;
+};
+
+__device__ __forceinline__ int row_word_hi(int e) {
+  return ((threadIdx.x >> 4) << 8) + (e << 4) + (threadIdx.x & 15);
+}
+
+__device__ __forceinline__ int row_word_lo(int e) { return threadIdx.x * 16 + e; }
+
+// The exchange buffer is padded by one word in 16.
+__device__ __forceinline__ int row_pad(int i) { return i + (i >> 4); }
+
+// Shared memory: [(chunk/256)·kSlots] uint2.  Returns its size in words.
+__device__ __forceinline__ int row_setup(const Large& g, int base, int chunk,
+                                         uint32_t* sm, RowThread& th, uint2 (&tw_lo)[kSlots]) {
+  th.mask_hi = stage_mask(4, 0, g.log_nb - 1);
+  th.mask_lo = stage_mask(0, 0, g.log_nb - 1);
+  uint2* tws = reinterpret_cast<uint2*>(sm);
+  stage_tw(tws, chunk >> 8, base, 256, 4, th.mask_hi, g.w, g.ws, g.log_n);
+  th.tw_hi = tws + kSlots * (threadIdx.x >> 4);
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k)
+    tw_lo[k] = load_tw(g.w, g.ws, g.log_n, base + threadIdx.x * 16, 0, th.mask_lo, k);
+  return 2 * kSlots * (chunk >> 8);
+}
+
+// a: words of the hi round on entry, of the lo round on exit.
+template <bool LAZY>
+__device__ __forceinline__ void fwd_row_phase(uint32_t (&a)[16], uint32_t* xb,
+                                              const Large& g, const RowThread& th,
+                                              const uint2 (&tw_lo)[kSlots]) {
+  ct_round<LAZY>(a, th.tw_hi, th.mask_hi, g.q);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) xb[row_pad(row_word_hi(e))] = a[e];
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < 16; ++e) a[e] = xb[row_pad(row_word_lo(e))];
+  ct_round<LAZY>(a, tw_lo, th.mask_lo, g.q);
+}
+
+// a: words of the lo round on entry, of the hi round on exit.
+template <bool LAZY>
+__device__ __forceinline__ void inv_row_phase(uint32_t (&a)[16], uint32_t* xb,
+                                              const Large& g, const RowThread& th,
+                                              const uint2 (&tw_lo)[kSlots]) {
+  gs_round<LAZY>(a, tw_lo, th.mask_lo, g.q);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) xb[row_pad(row_word_lo(e))] = a[e];
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < 16; ++e) a[e] = xb[row_pad(row_word_hi(e))];
+  gs_round<LAZY>(a, th.tw_hi, th.mask_hi, g.q);
+}
+
+// Forward exit: slot of word j scaled by R.  Inverse entry reads the same slot.
+__device__ __forceinline__ void store_slots(const uint32_t (&a)[16], int64_t* __restrict__ y,
+                                            size_t off, int base, const Large& g) {
+  const uint32_t r = g.c[1], r_s = g.c[2];
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    y[off + slot_of(base + row_word_lo(e), g.log_n, g.log_n1)] =
+        (int64_t)mul_shoup(a[e], r, r_s, g.q);
+}
+
+__device__ __forceinline__ void load_slots(uint32_t (&a)[16], const int64_t* __restrict__ y,
+                                           size_t off, int base, const Large& g) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    a[e] = low_word(y, off + slot_of(base + row_word_lo(e), g.log_n, g.log_n1));
+}
+
+// Inverse exit of the column phase: n^-1 R^-1 at the store, rows of the hi round.
+__device__ __forceinline__ void store_coeffs(const uint32_t (&a)[16], int64_t* __restrict__ x,
+                                             size_t off, int col, const Large& g,
+                                             const ColThread& th) {
+  const uint32_t f = g.c[3], f_s = g.c[4];
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    x[off + ((size_t)col_row_hi(g, th, e) << g.log_nb) + col] =
+        (int64_t)mul_shoup(a[e], f, f_s, g.q);
+}
+
+__device__ __forceinline__ void load_coeffs(uint32_t (&a)[16], const int64_t* __restrict__ x,
+                                            size_t off, int col, const Large& g,
+                                            const ColThread& th) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    a[e] = low_word(x, off + ((size_t)col_row_hi(g, th, e) << g.log_nb) + col);
+}
+
+__device__ __forceinline__ void copy16(uint32_t (&dst)[16], const uint32_t (&src)[16]) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) dst[e] = src[e];
+}
+
+// ---- two passes through a uint32 intermediate -------------------------------
+// tmp: (B, L, n) uint32, natural order j = r·nb + c.
+
+__global__ void __launch_bounds__(kLargeThreads)
 ntt_fwd_col_kernel(const int64_t* __restrict__ x, uint32_t* __restrict__ tmp,
-                   const uint32_t* __restrict__ tw,
-                   const uint32_t* __restrict__ consts,
-                   const int32_t* __restrict__ limbs, int L, int log_n,
+                   const uint32_t* __restrict__ tw, const uint32_t* __restrict__ consts,
+                   const int32_t* __restrict__ limbs, int L, int B, int log_n,
                    int log_na, int log_c) {
-  extern __shared__ uint32_t a[];  // (na, C)
-  const int n = 1 << log_n, log_nb = log_n - log_na;
-  const int cmask = (1 << log_c) - 1;
-  const int tiles = 1 << (log_nb - log_c);
-  const int l = blockIdx.x / tiles;
-  const int c0 = (blockIdx.x % tiles) << log_c;
-  const int lid = limbs[l];
-  const uint32_t* psi = tw + (size_t)lid * 4 * n;
-  const uint32_t* psi_s = psi + n;
-  const uint32_t q = consts[(size_t)lid * 8];
-  const size_t off = ((size_t)blockIdx.y * L + l) * n + c0;
-  const int tile = 1 << (log_na + log_c);
-
-  for (int t = threadIdx.x; t < tile; t += blockDim.x)
-    a[t] = (uint32_t)x[off + ((size_t)(t >> log_c) << log_nb) + (t & cmask)];
+  extern __shared__ uint32_t sm[];
+  const int tiles = 1 << (log_n - log_na - log_c);
+  const Large g = large_of(tw, consts, limbs, blockIdx.x / tiles, log_n, log_na, 0, false);
+  ColThread th;
+  uint32_t* bufs = sm + col_setup(g, log_c, false, sm, th);
   __syncthreads();
-  for (int s = 0; s < log_na; ++s) {
-    const int hs = log_na - 1 - s;  // half-size 2^hs rows, 2^s groups
-    for (int k = threadIdx.x; k < (tile >> 1); k += blockDim.x) {
-      const int kr = k >> log_c;
-      const int i = kr >> hs;
-      const int r1 = (i << (hs + 1)) + (kr & ((1 << hs) - 1));
-      const int j1 = (r1 << log_c) + (k & cmask);
-      ct_butterfly(a, j1, j1 + (1 << (hs + log_c)), psi[(1 << s) + i],
-                   psi_s[(1 << s) + i], q);
-    }
-    __syncthreads();
+  const int tile = tile_words(log_na, log_c);
+  const int col = ((blockIdx.x % tiles) << log_c) + th.c;
+  const size_t n = (size_t)1 << log_n;
+  uint32_t a[16], nxt[16];
+  int b = blockIdx.y;
+  if (b < B) load_coeffs(nxt, x, ((size_t)b * L + g.l) * n, col, g, th);
+  for (int it = 0; b < B; b += gridDim.y, ++it) {
+    const size_t off = ((size_t)b * L + g.l) * n;
+    copy16(a, nxt);
+    if (b + (int)gridDim.y < B)
+      load_coeffs(nxt, x, ((size_t)(b + gridDim.y) * L + g.l) * n, col, g, th);
+    if (g.lazy) fwd_col_phase<true>(a, bufs + (it & 1) * tile, g, th, log_c);
+    else fwd_col_phase<false>(a, bufs + (it & 1) * tile, g, th, log_c);
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      tmp[off + ((size_t)col_row_lo(th, e) << g.log_nb) + col] = a[e];
   }
-  for (int t = threadIdx.x; t < tile; t += blockDim.x)
-    tmp[off + ((size_t)(t >> log_c) << log_nb) + (t & cmask)] = a[t];
 }
 
-__global__ void __launch_bounds__(kPassThreads)
+__global__ void __launch_bounds__(kLargeThreads)
 ntt_fwd_row_kernel(const uint32_t* __restrict__ tmp, int64_t* __restrict__ y,
-                   const uint32_t* __restrict__ tw,
-                   const uint32_t* __restrict__ consts,
-                   const int32_t* __restrict__ pos_inv,
-                   const int32_t* __restrict__ limbs, int L, int log_n,
-                   int log_na, int log_chunk) {
-  extern __shared__ uint32_t a[];  // (chunk,)
-  const int n = 1 << log_n, chunk = 1 << log_chunk;
-  const int chunks = 1 << (log_n - log_chunk);
-  const int l = blockIdx.x / chunks;
+                   const uint32_t* __restrict__ tw, const uint32_t* __restrict__ consts,
+                   const int32_t* __restrict__ limbs, int L, int B, int log_n,
+                   int log_na, int log_chunk, int log_n1) {
+  extern __shared__ uint32_t sm[];
+  const int chunks = 1 << (log_n - log_chunk), chunk = 1 << log_chunk;
+  const Large g = large_of(tw, consts, limbs, blockIdx.x / chunks, log_n, log_na, log_n1, false);
   const int base = (blockIdx.x % chunks) << log_chunk;
-  const int lid = limbs[l];
-  const uint32_t* psi = tw + (size_t)lid * 4 * n;
-  const uint32_t* psi_s = psi + n;
-  const uint32_t* c = consts + (size_t)lid * 8;
-  const uint32_t q = c[0];
-  const size_t off = ((size_t)blockIdx.y * L + l) * n;
-
-  for (int t = threadIdx.x; t < chunk; t += blockDim.x) a[t] = tmp[off + base + t];
+  RowThread th;
+  uint2 tw_lo[kSlots];
+  uint32_t* xbs = sm + row_setup(g, base, chunk, sm, th, tw_lo);
   __syncthreads();
-  for (int s = log_na; s < log_n; ++s) {
-    const int hs = log_n - 1 - s;  // half-size 2^hs < nb
-    for (int kl = threadIdx.x; kl < (chunk >> 1); kl += blockDim.x) {
-      const int k = (base >> 1) + kl;  // butterfly index in the whole vector
-      const int i = k >> hs;
-      const int j1 = (i << (hs + 1)) + (k & ((1 << hs) - 1)) - base;
-      ct_butterfly(a, j1, j1 + (1 << hs), psi[(1 << s) + i], psi_s[(1 << s) + i], q);
-    }
-    __syncthreads();
+  const int padded = chunk + (chunk >> 4);
+  const size_t n = (size_t)1 << log_n;
+  uint32_t a[16], nxt[16];
+  int b = blockIdx.y;
+  auto load = [&](uint32_t (&dst)[16], int bb) {
+    const uint32_t* src = tmp + ((size_t)bb * L + g.l) * n + base;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) dst[e] = src[row_word_hi(e)];
+  };
+  if (b < B) load(nxt, b);
+  for (int it = 0; b < B; b += gridDim.y, ++it) {
+    copy16(a, nxt);
+    if (b + (int)gridDim.y < B) load(nxt, b + gridDim.y);
+    if (g.lazy) fwd_row_phase<true>(a, xbs + (it & 1) * padded, g, th, tw_lo);
+    else fwd_row_phase<false>(a, xbs + (it & 1) * padded, g, th, tw_lo);
+    store_slots(a, y, ((size_t)b * L + g.l) * n, base, g);
   }
-  const uint32_t r = c[1], r_s = c[2];
-  for (int t = threadIdx.x; t < chunk; t += blockDim.x)
-    y[off + pos_inv[base + t]] = (int64_t)mul_shoup(a[t], r, r_s, q);
 }
 
-__global__ void __launch_bounds__(kPassThreads)
+__global__ void __launch_bounds__(kLargeThreads)
 ntt_inv_row_kernel(const int64_t* __restrict__ y, uint32_t* __restrict__ tmp,
-                   const uint32_t* __restrict__ tw,
-                   const uint32_t* __restrict__ consts,
-                   const int32_t* __restrict__ pos_inv,
-                   const int32_t* __restrict__ limbs, int L, int log_n,
-                   int log_na, int log_chunk) {
-  extern __shared__ uint32_t a[];  // (chunk,)
-  const int n = 1 << log_n, chunk = 1 << log_chunk;
-  const int log_nb = log_n - log_na;
-  const int chunks = 1 << (log_n - log_chunk);
-  const int l = blockIdx.x / chunks;
+                   const uint32_t* __restrict__ tw, const uint32_t* __restrict__ consts,
+                   const int32_t* __restrict__ limbs, int L, int B, int log_n,
+                   int log_na, int log_chunk, int log_n1) {
+  extern __shared__ uint32_t sm[];
+  const int chunks = 1 << (log_n - log_chunk), chunk = 1 << log_chunk;
+  const Large g = large_of(tw, consts, limbs, blockIdx.x / chunks, log_n, log_na, log_n1, true);
   const int base = (blockIdx.x % chunks) << log_chunk;
-  const int lid = limbs[l];
-  const uint32_t* psi_inv = tw + (size_t)lid * 4 * n + 2 * (size_t)n;
-  const uint32_t* psi_inv_s = psi_inv + n;
-  const uint32_t q = consts[(size_t)lid * 8];
-  const size_t off = ((size_t)blockIdx.y * L + l) * n;
-
-  for (int t = threadIdx.x; t < chunk; t += blockDim.x)
-    a[t] = (uint32_t)y[off + pos_inv[base + t]];
+  RowThread th;
+  uint2 tw_lo[kSlots];
+  uint32_t* xbs = sm + row_setup(g, base, chunk, sm, th, tw_lo);
   __syncthreads();
-  for (int s = 0; s < log_nb; ++s) {
-    const int hg = log_n - 1 - s;  // 2^hg groups, half-size 2^s < nb
-    for (int kl = threadIdx.x; kl < (chunk >> 1); kl += blockDim.x) {
-      const int k = (base >> 1) + kl;
-      const int i = k >> s;
-      const int j1 = (i << (s + 1)) + (k & ((1 << s) - 1)) - base;
-      gs_butterfly(a, j1, j1 + (1 << s), psi_inv[(1 << hg) + i],
-                   psi_inv_s[(1 << hg) + i], q);
-    }
-    __syncthreads();
+  const int padded = chunk + (chunk >> 4);
+  const size_t n = (size_t)1 << log_n;
+  uint32_t a[16], nxt[16];
+  int b = blockIdx.y;
+  if (b < B) load_slots(nxt, y, ((size_t)b * L + g.l) * n, base, g);
+  for (int it = 0; b < B; b += gridDim.y, ++it) {
+    copy16(a, nxt);
+    if (b + (int)gridDim.y < B)
+      load_slots(nxt, y, ((size_t)(b + gridDim.y) * L + g.l) * n, base, g);
+    if (g.lazy) inv_row_phase<true>(a, xbs + (it & 1) * padded, g, th, tw_lo);
+    else inv_row_phase<false>(a, xbs + (it & 1) * padded, g, th, tw_lo);
+    uint32_t* dst = tmp + ((size_t)b * L + g.l) * n + base;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) dst[row_word_hi(e)] = a[e];
   }
-  for (int t = threadIdx.x; t < chunk; t += blockDim.x) tmp[off + base + t] = a[t];
 }
 
-__global__ void __launch_bounds__(kPassThreads)
+__global__ void __launch_bounds__(kLargeThreads)
 ntt_inv_col_kernel(const uint32_t* __restrict__ tmp, int64_t* __restrict__ x,
-                   const uint32_t* __restrict__ tw,
-                   const uint32_t* __restrict__ consts,
-                   const int32_t* __restrict__ limbs, int L, int log_n,
+                   const uint32_t* __restrict__ tw, const uint32_t* __restrict__ consts,
+                   const int32_t* __restrict__ limbs, int L, int B, int log_n,
                    int log_na, int log_c) {
-  extern __shared__ uint32_t a[];  // (na, C)
-  const int n = 1 << log_n, log_nb = log_n - log_na;
-  const int cmask = (1 << log_c) - 1;
-  const int tiles = 1 << (log_nb - log_c);
-  const int l = blockIdx.x / tiles;
-  const int c0 = (blockIdx.x % tiles) << log_c;
-  const int lid = limbs[l];
-  const uint32_t* psi_inv = tw + (size_t)lid * 4 * n + 2 * (size_t)n;
-  const uint32_t* psi_inv_s = psi_inv + n;
-  const uint32_t* c = consts + (size_t)lid * 8;
-  const uint32_t q = c[0];
-  const size_t off = ((size_t)blockIdx.y * L + l) * n + c0;
-  const int tile = 1 << (log_na + log_c);
-
-  for (int t = threadIdx.x; t < tile; t += blockDim.x)
-    a[t] = tmp[off + ((size_t)(t >> log_c) << log_nb) + (t & cmask)];
+  extern __shared__ uint32_t sm[];
+  const int tiles = 1 << (log_n - log_na - log_c);
+  const Large g = large_of(tw, consts, limbs, blockIdx.x / tiles, log_n, log_na, 0, true);
+  ColThread th;
+  uint32_t* bufs = sm + col_setup(g, log_c, true, sm, th);
   __syncthreads();
-  for (int sr = 0; sr < log_na; ++sr) {  // stage s = log_nb + sr, half 2^sr rows
-    const int hg = log_na - 1 - sr;      // = log_n - 1 - s
-    for (int k = threadIdx.x; k < (tile >> 1); k += blockDim.x) {
-      const int kr = k >> log_c;
-      const int i = kr >> sr;
-      const int r1 = (i << (sr + 1)) + (kr & ((1 << sr) - 1));
-      const int j1 = (r1 << log_c) + (k & cmask);
-      gs_butterfly(a, j1, j1 + (1 << (sr + log_c)), psi_inv[(1 << hg) + i],
-                   psi_inv_s[(1 << hg) + i], q);
-    }
-    __syncthreads();
+  const int tile = tile_words(log_na, log_c);
+  const int col = ((blockIdx.x % tiles) << log_c) + th.c;
+  const size_t n = (size_t)1 << log_n;
+  uint32_t a[16], nxt[16];
+  int b = blockIdx.y;
+  auto load = [&](uint32_t (&dst)[16], int bb) {
+    const uint32_t* src = tmp + ((size_t)bb * L + g.l) * n + col;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) dst[e] = src[(size_t)col_row_lo(th, e) << g.log_nb];
+  };
+  if (b < B) load(nxt, b);
+  for (int it = 0; b < B; b += gridDim.y, ++it) {
+    copy16(a, nxt);
+    if (b + (int)gridDim.y < B) load(nxt, b + gridDim.y);
+    if (g.lazy) inv_col_phase<true>(a, bufs + (it & 1) * tile, g, th, log_c);
+    else inv_col_phase<false>(a, bufs + (it & 1) * tile, g, th, log_c);
+    store_coeffs(a, x, ((size_t)b * L + g.l) * n, col, g, th);
   }
-  const uint32_t f = c[3], f_s = c[4];
-  for (int t = threadIdx.x; t < tile; t += blockDim.x)
-    x[off + ((size_t)(t >> log_c) << log_nb) + (t & cmask)] =
-        (int64_t)mul_shoup(a[t], f, f_s, q);
+}
+
+// ---- one trip: a cluster of nb/C CTAs holds the vector ----------------------
+// CTA `rank` of the cluster owns the columns [rank·C, (rank+1)·C) in the
+// column phase and the words [rank·na·C, (rank+1)·na·C) (whole rows) in the
+// row phase.  The phase that runs first pushes its results into the shared
+// memory of the CTAs that own them in the second phase (stores to
+// distributed shared memory do not stall the writer): the forward column
+// phase writes row r into CTA r / (na·C/nb) as local words (padded by 16 in
+// 256), the inverse row phase writes word (r, col) into CTA col/C as (row,
+// column in tile).  The receiving buffer is double-buffered and the cluster
+// barrier is split: a CTA produces polynomial k+1, fetches polynomial k from
+// its own shared memory into registers, arrives, and runs the second phase
+// of polynomial k while the others catch up; the wait that follows makes
+// polynomial k+1 complete everywhere and buffer k free again.
+
+__device__ __forceinline__ int rows_pad(int i) { return i + ((i >> 8) << 4); }
+
+// The two halves of the cluster barrier: arrive releases this thread's
+// writes (to any CTA's shared memory), wait acquires the others'.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kLargeThreads)
+ntt_fwd_cluster_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ y,
+                       const uint32_t* __restrict__ tw, const uint32_t* __restrict__ consts,
+                       const int32_t* __restrict__ limbs, int L, int B, int log_n,
+                       int log_na, int log_c, int log_n1) {
+  extern __shared__ uint32_t sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int log_k = log_n - log_na - log_c;          // CTAs in the cluster
+  const int rank = (int)cluster.block_rank();
+  const Large g = large_of(tw, consts, limbs, blockIdx.x >> log_k, log_n, log_na, log_n1, false);
+  const int tile = 1 << (log_na + log_c), base = rank * tile;
+  const int padded = tile + (tile >> 4);
+  ColThread ct;
+  RowThread rt;
+  uint2 tw_lo[kSlots];
+  uint32_t* p = sm + col_setup(g, log_c, false, sm, ct);
+  p += row_setup(g, base, tile, p, rt, tw_lo);
+  uint32_t* recv = p;                                // 2 x padded: my rows, pushed by all
+  uint32_t* xb = recv + 2 * padded;                  // padded: the row exchange
+  uint32_t* cb = xb + padded;                        // tile: the column exchange
+  const int col = (rank << log_c) + ct.c;
+  const int log_rows = log_na - log_k;               // rows a CTA owns: 2^log_rows
+  const size_t n = (size_t)1 << log_n;
+  const int G = gridDim.y;
+  uint32_t a[16], nxt[16];
+  int b = blockIdx.y;
+  if (b < B) load_coeffs(nxt, x, ((size_t)b * L + g.l) * n, col, g, ct);
+  // every CTA of the cluster is running before any shared memory is written
+  cluster.sync();
+  auto produce = [&](int bb, int k) {                // column phase of polynomial bb
+    copy16(a, nxt);
+    if (bb + G < B) load_coeffs(nxt, x, ((size_t)(bb + G) * L + g.l) * n, col, g, ct);
+    if (g.lazy) fwd_col_phase<true>(a, cb, g, ct, log_c);
+    else fwd_col_phase<false>(a, cb, g, ct, log_c);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int r = col_row_lo(ct, e);
+      uint32_t* theirs = cluster.map_shared_rank(recv + (k & 1) * padded, r >> log_rows);
+      theirs[rows_pad(((r & ((1 << log_rows) - 1)) << g.log_nb) + col)] = a[e];
+    }
+  };
+  if (b < B) produce(b, 0);
+  cluster_arrive();
+  for (int k = 0; b < B; b += G, ++k) {
+    cluster_wait();
+    if (b + G < B) produce(b + G, k + 1);
+    const uint32_t* mine = recv + (k & 1) * padded;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) a[e] = mine[rows_pad(row_word_hi(e))];
+    cluster_arrive();
+    if (g.lazy) fwd_row_phase<true>(a, xb, g, rt, tw_lo);
+    else fwd_row_phase<false>(a, xb, g, rt, tw_lo);
+    store_slots(a, y, ((size_t)b * L + g.l) * n, base, g);
+  }
+  cluster_wait();
+}
+
+__global__ void __launch_bounds__(kLargeThreads)
+ntt_inv_cluster_kernel(const int64_t* __restrict__ y, int64_t* __restrict__ x,
+                       const uint32_t* __restrict__ tw, const uint32_t* __restrict__ consts,
+                       const int32_t* __restrict__ limbs, int L, int B, int log_n,
+                       int log_na, int log_c, int log_n1) {
+  extern __shared__ uint32_t sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int log_k = log_n - log_na - log_c;
+  const int rank = (int)cluster.block_rank();
+  const Large g = large_of(tw, consts, limbs, blockIdx.x >> log_k, log_n, log_na, log_n1, true);
+  const int tile = 1 << (log_na + log_c), base = rank * tile;
+  ColThread ct;
+  RowThread rt;
+  uint2 tw_lo[kSlots];
+  uint32_t* p = sm + col_setup(g, log_c, true, sm, ct);
+  p += row_setup(g, base, tile, p, rt, tw_lo);
+  const int tw_ = tile_words(log_na, log_c);
+  uint32_t* recv = p;                                // 2 x tile: my columns, pushed by all
+  uint32_t* cb = recv + 2 * tw_;                     // tile: the column exchange
+  uint32_t* xb = cb + tw_;                           // tile + tile/16: the row exchange
+  const int col = (rank << log_c) + ct.c;
+  const size_t n = (size_t)1 << log_n;
+  const int G = gridDim.y;
+  uint32_t a[16], nxt[16];
+  int b = blockIdx.y;
+  if (b < B) load_slots(nxt, y, ((size_t)b * L + g.l) * n, base, g);
+  cluster.sync();
+  auto produce = [&](int bb, int k) {                // row phase of polynomial bb
+    copy16(a, nxt);
+    if (bb + G < B) load_slots(nxt, y, ((size_t)(bb + G) * L + g.l) * n, base, g);
+    if (g.lazy) inv_row_phase<true>(a, xb, g, rt, tw_lo);
+    else inv_row_phase<false>(a, xb, g, rt, tw_lo);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int j = base + row_word_hi(e);
+      const int r = j >> g.log_nb, cc = j & ((1 << g.log_nb) - 1);
+      uint32_t* theirs = cluster.map_shared_rank(recv + (k & 1) * tw_, cc >> log_c);
+      theirs[col_at(r, cc & ((1 << log_c) - 1), log_c)] = a[e];
+    }
+  };
+  if (b < B) produce(b, 0);
+  cluster_arrive();
+  for (int k = 0; b < B; b += G, ++k) {
+    cluster_wait();
+    if (b + G < B) produce(b + G, k + 1);
+    const uint32_t* mine = recv + (k & 1) * tw_;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) a[e] = mine[col_at(col_row_lo(ct, e), ct.c, log_c)];
+    cluster_arrive();
+    if (g.lazy) inv_col_phase<true>(a, cb, g, ct, log_c);
+    else inv_col_phase<false>(a, cb, g, ct, log_c);
+    store_coeffs(a, x, ((size_t)b * L + g.l) * n, col, g, ct);
+  }
+  cluster_wait();
 }
 
 int launch(bool inverse, const void* in, void* out, const void* tw,
@@ -360,8 +841,91 @@ int launch(bool inverse, const void* in, void* out, const void* tw,
   return (int)cudaGetLastError();
 }
 
-int pass_threads(int elems) {
-  return (elems / 2) < kPassThreads ? (elems / 2) : kPassThreads;
+// Launch with `smem` bytes of dynamic shared memory (opt-in above 48 KB) and,
+// where cluster > 0, as thread-block clusters of that many CTAs along x.
+template <typename Kernel, typename... Args>
+int launch_large(Kernel kernel, dim3 grid, int threads, size_t smem, int cluster,
+                 void* stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  if (cluster > 8) {   // above the portable size: the H100 takes 16 with this opt-in
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (cluster > 0) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+size_t col_tw_bytes(int log_na) { return sizeof(uint2) * kSlots * (1 + (1 << (log_na - 4))); }
+size_t row_tw_bytes(int elems) { return sizeof(uint2) * kSlots * (elems >> 8); }
+size_t padded_bytes(int elems) { return sizeof(uint32_t) * (elems + (elems >> 4)); }
+
+int launch_col(bool inverse, const void* in, void* out, const void* tw,
+               const void* consts, const void* limbs, int L, int B, int G,
+               int log_n, int log_na, int log_c, void* stream) {
+  const int tile = 1 << (log_na + log_c);
+  const dim3 grid(L << (log_n - log_na - log_c), G);
+  const size_t smem = col_tw_bytes(log_na) + 2 * tile_words(log_na, log_c) * sizeof(uint32_t);
+  if (inverse)
+    return launch_large(ntt_inv_col_kernel, grid, tile / 16, smem, 0, stream,
+                        (const uint32_t*)in, (int64_t*)out, (const uint32_t*)tw,
+                        (const uint32_t*)consts, (const int32_t*)limbs, L, B, log_n,
+                        log_na, log_c);
+  return launch_large(ntt_fwd_col_kernel, grid, tile / 16, smem, 0, stream,
+                      (const int64_t*)in, (uint32_t*)out, (const uint32_t*)tw,
+                      (const uint32_t*)consts, (const int32_t*)limbs, L, B, log_n,
+                      log_na, log_c);
+}
+
+int launch_row(bool inverse, const void* in, void* out, const void* tw,
+               const void* consts, const void* limbs, int L, int B, int G,
+               int log_n, int log_na, int log_chunk, int log_n1, void* stream) {
+  const int chunk = 1 << log_chunk;
+  const dim3 grid(L << (log_n - log_chunk), G);
+  const size_t smem = row_tw_bytes(chunk) + 2 * padded_bytes(chunk);
+  if (inverse)
+    return launch_large(ntt_inv_row_kernel, grid, chunk / 16, smem, 0, stream,
+                        (const int64_t*)in, (uint32_t*)out, (const uint32_t*)tw,
+                        (const uint32_t*)consts, (const int32_t*)limbs, L, B, log_n,
+                        log_na, log_chunk, log_n1);
+  return launch_large(ntt_fwd_row_kernel, grid, chunk / 16, smem, 0, stream,
+                      (const uint32_t*)in, (int64_t*)out, (const uint32_t*)tw,
+                      (const uint32_t*)consts, (const int32_t*)limbs, L, B, log_n,
+                      log_na, log_chunk, log_n1);
+}
+
+int launch_cluster(bool inverse, const void* in, void* out, const void* tw,
+                   const void* consts, const void* limbs, int L, int B, int G,
+                   int log_n, int log_na, int log_c, int log_n1, void* stream) {
+  const int tile = 1 << (log_na + log_c);
+  const int k = 1 << (log_n - log_na - log_c);
+  const dim3 grid(L * k, G);
+  const size_t tw_bytes = col_tw_bytes(log_na) + row_tw_bytes(tile);
+  const size_t tile_bytes = tile_words(log_na, log_c) * sizeof(uint32_t);
+  const size_t smem = tw_bytes + tile_bytes + padded_bytes(tile) +
+      2 * (inverse ? tile_bytes : padded_bytes(tile));
+  return launch_large(inverse ? ntt_inv_cluster_kernel : ntt_fwd_cluster_kernel, grid,
+                      tile / 16, smem, k, stream, (const int64_t*)in, (int64_t*)out,
+                      (const uint32_t*)tw, (const uint32_t*)consts,
+                      (const int32_t*)limbs, L, B, log_n, log_na, log_c, log_n1);
 }
 
 }  // namespace
@@ -383,58 +947,50 @@ int rfhe_ntt_inv(const void* y, void* x, const void* tw, const void* consts,
   return launch(true, y, x, tw, consts, pos, limbs, L, B, log_n, stream);
 }
 
-// Large-ring form, one pass each.  Forward: col then row; inverse: row then
-// col.  Column passes: grid (L·nb/C, B); row passes: grid (L·n/chunk, B).
-int rfhe_ntt_fwd_col(const void* x, void* tmp, const void* tw,
-                     const void* consts, const void* limbs, int L, int B,
-                     int log_n, int log_na, int log_c, void* stream) {
-  const dim3 grid(L << (log_n - log_na - log_c), B);
-  const int tile = 1 << (log_na + log_c);
-  ntt_fwd_col_kernel<<<grid, pass_threads(tile), tile * sizeof(uint32_t),
-                       (cudaStream_t)stream>>>(
-      (const int64_t*)x, (uint32_t*)tmp, (const uint32_t*)tw,
-      (const uint32_t*)consts, (const int32_t*)limbs, L, log_n, log_na, log_c);
-  return (int)cudaGetLastError();
+
+// Large-ring form.  G is the number of polynomial groups (grid.y); a CTA
+// transforms the polynomials g, g + G, ... of its (limb, tile).
+// Two passes, one entry point each.  Forward: col then row; inverse: row
+// then col.  Column passes: grid (L·nb/C, G); row passes: grid (L·n/chunk, G).
+int rfhe_ntt_fwd_col(const void* x, void* tmp, const void* tw, const void* consts,
+                     const void* limbs, int L, int B, int G, int log_n, int log_na,
+                     int log_c, void* stream) {
+  return launch_col(false, x, tmp, tw, consts, limbs, L, B, G, log_n, log_na, log_c, stream);
 }
 
-int rfhe_ntt_fwd_row(const void* tmp, void* y, const void* tw,
-                     const void* consts, const void* pos_inv,
-                     const void* limbs, int L, int B, int log_n, int log_na,
-                     int log_chunk, void* stream) {
-  const dim3 grid(L << (log_n - log_chunk), B);
-  const int chunk = 1 << log_chunk;
-  ntt_fwd_row_kernel<<<grid, pass_threads(chunk), chunk * sizeof(uint32_t),
-                       (cudaStream_t)stream>>>(
-      (const uint32_t*)tmp, (int64_t*)y, (const uint32_t*)tw,
-      (const uint32_t*)consts, (const int32_t*)pos_inv, (const int32_t*)limbs,
-      L, log_n, log_na, log_chunk);
-  return (int)cudaGetLastError();
+int rfhe_ntt_fwd_row(const void* tmp, void* y, const void* tw, const void* consts,
+                     const void* limbs, int L, int B, int G, int log_n, int log_na,
+                     int log_chunk, int log_n1, void* stream) {
+  return launch_row(false, tmp, y, tw, consts, limbs, L, B, G, log_n, log_na, log_chunk,
+                    log_n1, stream);
 }
 
-int rfhe_ntt_inv_row(const void* y, void* tmp, const void* tw,
-                     const void* consts, const void* pos_inv,
-                     const void* limbs, int L, int B, int log_n, int log_na,
-                     int log_chunk, void* stream) {
-  const dim3 grid(L << (log_n - log_chunk), B);
-  const int chunk = 1 << log_chunk;
-  ntt_inv_row_kernel<<<grid, pass_threads(chunk), chunk * sizeof(uint32_t),
-                       (cudaStream_t)stream>>>(
-      (const int64_t*)y, (uint32_t*)tmp, (const uint32_t*)tw,
-      (const uint32_t*)consts, (const int32_t*)pos_inv, (const int32_t*)limbs,
-      L, log_n, log_na, log_chunk);
-  return (int)cudaGetLastError();
+int rfhe_ntt_inv_row(const void* y, void* tmp, const void* tw, const void* consts,
+                     const void* limbs, int L, int B, int G, int log_n, int log_na,
+                     int log_chunk, int log_n1, void* stream) {
+  return launch_row(true, y, tmp, tw, consts, limbs, L, B, G, log_n, log_na, log_chunk,
+                    log_n1, stream);
 }
 
-int rfhe_ntt_inv_col(const void* tmp, void* x, const void* tw,
-                     const void* consts, const void* limbs, int L, int B,
-                     int log_n, int log_na, int log_c, void* stream) {
-  const dim3 grid(L << (log_n - log_na - log_c), B);
-  const int tile = 1 << (log_na + log_c);
-  ntt_inv_col_kernel<<<grid, pass_threads(tile), tile * sizeof(uint32_t),
-                       (cudaStream_t)stream>>>(
-      (const uint32_t*)tmp, (int64_t*)x, (const uint32_t*)tw,
-      (const uint32_t*)consts, (const int32_t*)limbs, L, log_n, log_na, log_c);
-  return (int)cudaGetLastError();
+int rfhe_ntt_inv_col(const void* tmp, void* x, const void* tw, const void* consts,
+                     const void* limbs, int L, int B, int G, int log_n, int log_na,
+                     int log_c, void* stream) {
+  return launch_col(true, tmp, x, tw, consts, limbs, L, B, G, log_n, log_na, log_c, stream);
+}
+
+// One trip: clusters of nb/C CTAs, grid (L·nb/C, G).
+int rfhe_ntt_fwd_cluster(const void* x, void* y, const void* tw, const void* consts,
+                         const void* limbs, int L, int B, int G, int log_n, int log_na,
+                         int log_c, int log_n1, void* stream) {
+  return launch_cluster(false, x, y, tw, consts, limbs, L, B, G, log_n, log_na, log_c,
+                        log_n1, stream);
+}
+
+int rfhe_ntt_inv_cluster(const void* y, void* x, const void* tw, const void* consts,
+                         const void* limbs, int L, int B, int G, int log_n, int log_na,
+                         int log_c, int log_n1, void* stream) {
+  return launch_cluster(true, y, x, tw, consts, limbs, L, B, G, log_n, log_na, log_c,
+                        log_n1, stream);
 }
 
 }  // extern "C"

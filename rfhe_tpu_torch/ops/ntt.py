@@ -18,8 +18,10 @@ bit-reversed ψ powers (output in bit-reversed order), Gentleman-Sande
 inverse.  Slot p of the forward output is read from position brev(nu[p]);
 `pos` holds that index.  On a CUDA tensor `NttPlan.fwd/inv` launch the
 kernels of `ops/ntt_cuda.py` (one block per vector up to n = 16384, the
-two-pass large-ring form above); on a CPU tensor they run the plain versions
-below, which do the same butterflies with `(a*w) % q` on int64 tensors.
+large-ring form above); on a CPU tensor they run the plain versions below,
+which do the same butterflies with `(a*w) % q` on int64 tensors.  The
+large-ring kernels compute the slot of a network position in closed form,
+`slot_of_position`; the tables are held against it when they are built.
 """
 from __future__ import annotations
 
@@ -80,6 +82,25 @@ def _bit_reverse(n: int) -> np.ndarray:
     return r
 
 
+def slot_of_position(n: int, n1: int) -> np.ndarray:
+    """Slot p of network position j, in closed form: with j = jh·n1 + jl,
+    p = brev(jh)·n1 + brev(jl), each reversal over its own width.  (Position
+    brev(nu[p]) of slot p = a·n1 + b is brev(b·n2 + a) = brev(a)·n1 + brev(b).)
+    The large-ring kernels compute this with `__brev` and read no slot table."""
+    j = np.arange(n, dtype=np.int64)
+    return _bit_reverse(n // n1)[j // n1] * n1 + _bit_reverse(n1)[j % n1]
+
+
+def slot_rows_contiguous(n: int, n1: int, log_na: int) -> bool:
+    """Whether every row of the split n = na·nb (position j = r·nb + c) is one
+    contiguous row of slots, slot row brev(r) with its columns bit-reversed:
+    slot_of_position(r·nb + c) = brev(r)·nb + brev(c).  It holds when nb = n1."""
+    nb = n >> log_na
+    j = np.arange(n, dtype=np.int64)
+    want = _bit_reverse(n // nb)[j // nb] * nb + _bit_reverse(nb)[j % nb]
+    return bool(np.array_equal(slot_of_position(n, n1), want))
+
+
 def _pow_table(base: int, count: int, q: int) -> np.ndarray:
     """base^i mod q for i < count (a power of two), by doubling: the upper
     half of each prefix is the lower half times base^len (products < 2^62)."""
@@ -122,8 +143,7 @@ class _ChainTables:
     # the same tables packed for the CUDA kernels (uint32 bits in int32):
     kernel_tw: torch.Tensor      # (Lf, 4, n) [ψ^brev, Shoup, ψ^-brev, Shoup]
     kernel_consts: torch.Tensor  # (Lf, 8) [q, R, R', n⁻¹R⁻¹, (n⁻¹R⁻¹)', 0, 0, 0]
-    kernel_pos: torch.Tensor     # (n,) int32 brev(nu[p])
-    kernel_pos_inv: torch.Tensor  # (n,) int32 slot of network position j
+    kernel_pos: torch.Tensor     # (n,) int32 brev(nu[p]), the one-block kernels'
     views: Dict[Tuple[int, ...], "NttPlan"] = field(default_factory=dict)
 
     @classmethod
@@ -136,6 +156,9 @@ class _ChainTables:
         pos = brev[nu]
         pos_inv = np.empty(n, dtype=np.int64)
         pos_inv[pos] = np.arange(n)
+        if not np.array_equal(pos_inv, slot_of_position(n, n1)):
+            raise AssertionError(f"slot order of n={n}, n1={n1} is not the closed form "
+                                 f"the large-ring kernels compute")
         psi_rev = np.empty((Lf, n), dtype=np.uint64)
         psi_inv_rev = np.empty((Lf, n), dtype=np.uint64)
         consts = np.zeros((Lf, 8), dtype=np.uint64)
@@ -165,7 +188,6 @@ class _ChainTables:
             pos=dev(pos), pos_inv=dev(pos_inv),
             kernel_tw=_bits32(tw).to(device), kernel_consts=_bits32(consts).to(device),
             kernel_pos=dev(pos.astype(np.int32)),
-            kernel_pos_inv=dev(pos_inv.astype(np.int32)),
         )
 
     def view(self, limbs: Tuple[int, ...]) -> "NttPlan":

@@ -6,11 +6,27 @@ inverse kernels `_inv_kernel`.  Each direction has two forms:
   one-block   `rfhe_ntt_fwd` / `rfhe_ntt_inv`: one CTA holds the vector of a
               (poly, limb) in shared memory, n <= 32768 (above 8192 with
               opt-in dynamic shared memory);
-  large-ring  `rfhe_ntt_fwd_col` + `rfhe_ntt_fwd_row` (inverse: `_inv_row` +
-              `_inv_col`): n = na·nb in two passes through a uint32
-              intermediate in global memory, any n >= 4.
+  large-ring  n = na·nb with 16 <= na <= 256, 2 <= nb <= 256, n >= 256, as
+              one trip through device memory, `rfhe_ntt_fwd_cluster` /
+              `rfhe_ntt_inv_cluster` (a thread-block cluster of nb/16 CTAs
+              holds the vector across its shared memories), or as two passes
+              through a uint32 intermediate, `rfhe_ntt_fwd_col` +
+              `rfhe_ntt_fwd_row` (inverse: `_inv_row` + `_inv_col`).
 
-`default_split` picks the form from n.  The source is compiled with nvcc for
+The large-ring form is bounded by bytes (16 per element at the least).  Its
+kernels keep 16 elements of a thread in registers for four butterfly stages
+at a time, loop over the polynomials of a (limb, tile) so that twiddles are
+fetched once and the next polynomial's loads are in flight while the current
+one computes, and write whole slot rows; the cluster kernels drop the
+intermediate's 8 bytes per element and one launch.  The host side of that
+design is here: `large_geometry` and `cluster_geometry` (tiles and chunks),
+`poly_groups` (how the batch is split over grid.y), `default_split` and
+`large_form` (which form a ring and a launch take).
+
+`split` selects the form: 0 the one-block form, an int log2(na) the
+large-ring form at that split with the kernels `large_form` picks for the
+launch's size, `("cluster", log2 na)` and `("two_pass", log2 na)` one of them
+by name, None what `default_split(n)` says.  The source is compiled with nvcc for
 sm_90a into `build/rfhe_tpu_torch/` of the checkout at first use, into a
 library named by the hash of the source and flags, and loaded with ctypes.
 Importing this module needs no nvcc and no GPU.
@@ -28,8 +44,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+from functools import lru_cache
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -41,42 +58,125 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_N = 65536             # the largest ring the reference package runs
 MAX_ONE_BLOCK_N = 32768   # 128 KB of the 227 KB a block may use on sm_90
-MAX_ONE_BLOCK_DEFAULT_N = 16384   # the largest ring that takes one block by itself
-MAX_BATCH = 65535         # grid.y
-MAX_PASS_ELEMS = 8192     # words of shared memory a pass may hold (32 KB)
+MAX_ONE_BLOCK_DEFAULT_N = 8192    # the largest ring that takes one block by itself
+MAX_ONE_BLOCK_BATCH = 65535       # grid.y of the one-block kernels
+MIN_LARGE_N = 256         # a row-phase chunk is a multiple of 256 words
+LOG_COLS = 5              # a column tile is at most 32 columns wide,
+LOG_COLS_CLUSTER = 4      # 16 in the cluster kernels (two CTAs of 256 threads per SM)
+LOG_CHUNK = 12            # a row pass works on chunks of at most 4096 words
+CLUSTER_MAX_VECTORS = 128  # batch·L up to which the cluster kernels are the default
 FORMS = ("fwd", "inv", "fwd_large", "inv_large")
+CLUSTER, TWO_PASS = "cluster", "two_pass"
+Split = Union[None, int, Tuple[str, int]]
 
 
 def large_split(n: int) -> int:
     """log2(na) of the large-ring form's own split, nb = 2^floor(log2(n)/2).
     From n = 16384 up that is n1, the plan's slot-order split, so every row
-    of the intermediate maps to one contiguous row of slots."""
+    of the network is one contiguous row of slots."""
     log_n = n.bit_length() - 1
     return log_n - (log_n // 2)
 
 
 def default_split(n: int) -> int:
-    """log2(na) of the form that n takes by itself; 0 is the one-block form.
-    Both forms take n = 16384 and 32768; on an H100 the one-block form is
-    the faster at n = 16384 and the large-ring form at n = 32768, at the
-    keyswitch shape (21, 22, n) and at the mod-down's (2, 1, n) alike
-    (chip_smoke.py times both)."""
+    """log2(na) of the form that ring n takes by itself; 0 is the one-block
+    form.  Both forms take n = 256 ... 32768.  On an H100 the large-ring form
+    is the faster from n = 16384 up, at the keyswitch shape (21, 22, n) and at
+    the mod-down's small shapes alike (chip_smoke.py times both)."""
     return 0 if n <= MAX_ONE_BLOCK_DEFAULT_N else large_split(n)
 
 
+def large_form(vectors: int) -> str:
+    """Which large-ring kernels a launch of `vectors` = batch·L vectors takes
+    by itself.  The cluster kernels move 16 bytes per element in one launch
+    but keep the CTAs of a cluster in step, polynomial by polynomial; the two
+    passes move 24 in two launches of independent CTAs.  On an H100 the
+    cluster kernels win or draw up to about a hundred vectors (a grouped
+    keyswitch's (3, 28, n), the mod-down's (2, 21, n) and (2, 1, n)) and lose
+    by a sixth at (21, 22, n) (chip_smoke.py times both forms)."""
+    return CLUSTER if vectors <= CLUSTER_MAX_VECTORS else TWO_PASS
+
+
+def resolve_split(n: int, split: Split, vectors: int) -> Tuple[str, int]:
+    """(kind, log2 na) of a selector for a launch of `vectors` vectors: kind is
+    "one_block", CLUSTER or TWO_PASS."""
+    if split is None:
+        split = default_split(n)
+    if isinstance(split, tuple):
+        kind, log_na = split
+        if kind not in (CLUSTER, TWO_PASS):
+            raise ValueError(f"unknown large-ring form {kind!r}")
+        return kind, int(log_na)
+    return ("one_block", 0) if split == 0 else (large_form(vectors), int(split))
+
+
 def large_geometry(log_n: int, log_na: int) -> tuple:
-    """(log_c, log_chunk) of the large-ring passes for n = 2^log_n split as
-    na = 2^log_na rows by nb columns: the column tile is C = 2^log_c columns
-    wide (na·C words of shared memory), the row pass works on chunks of
-    2^log_chunk consecutive words (whole rows)."""
+    """(log_c, log_chunk) of the large-ring kernels for n = 2^log_n split as
+    na = 2^log_na rows by nb columns.  A column tile is C = 2^log_c columns
+    wide and na rows high, na·C/16 threads; a row pass works on chunks of
+    2^log_chunk consecutive words, chunk/16 threads.  A thread holds 16
+    elements for at most four stages and a phase is two such rounds, so na
+    lies in [16, 256] and nb in [2, 256]."""
     log_nb = log_n - log_na
-    cap = MAX_PASS_ELEMS.bit_length() - 1
-    if not (1 <= log_na <= cap and 1 <= log_nb <= cap):
-        raise ValueError(f"split 2^{log_na} x 2^{log_nb} of n=2^{log_n}: both "
-                         f"factors must lie in [2, {MAX_PASS_ELEMS}]")
-    log_c = min(log_nb, 5, cap - log_na)
-    log_chunk = max(log_nb, min(log_n, 11))
-    return log_c, log_chunk
+    if not (log_n >= MIN_LARGE_N.bit_length() - 1 and 4 <= log_na <= 8 and 1 <= log_nb <= 8):
+        raise ValueError(f"split 2^{log_na} x 2^{log_nb} of n=2^{log_n}: the large-ring "
+                         f"form takes n >= {MIN_LARGE_N}, 16 <= na <= 256, 2 <= nb <= 256")
+    return min(log_nb, LOG_COLS), min(log_n, LOG_CHUNK)
+
+
+def cluster_geometry(log_n: int, log_na: int) -> tuple:
+    """(log_c, CTAs per cluster) of the cluster kernels: the cluster's CTAs
+    hold nb/C column tiles of C = 2^log_c columns each."""
+    log_c = min(large_geometry(log_n, log_na)[0], LOG_COLS_CLUSTER)
+    return log_c, 1 << (log_n - log_na - log_c)
+
+
+def resident_ctas(sms: int, threads: int) -> int:
+    """CTAs of `threads` threads that the card holds at once: the large-ring
+    kernels take up to 128 registers a thread, so an SM holds 512 threads of
+    them (at most 8 CTAs)."""
+    return sms * min(8, max(1, 512 // threads))
+
+
+def poly_groups(batch: int, ctas: int, slots: int) -> int:
+    """grid.y of a large-ring launch: the batch is split into this many groups,
+    and a CTA loops over the polynomials g, g + G, ... of its (limb, tile).
+    `ctas` is the grid's x and `slots` the CTAs the card holds at once.  The
+    launch runs in ceil(ctas·G/slots) waves of ceil(batch/G) loop trips each,
+    and a CTA pays about one trip's time to fetch its twiddles, so G is the
+    smallest count that minimises waves·(trips + 1): long loops (twiddles
+    fetched once, the next polynomial's loads in flight) unless more groups
+    fill a ragged last wave."""
+    best, best_cost = 1, None
+    for g in range(1, min(batch, max(1, 4 * slots // ctas)) + 1):
+        cost = -(-ctas * g // slots) * (-(-batch // g) + 1)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = g, cost
+    return best
+
+
+def large_passes(kind: str, inverse: bool, L: int, batch: int, log_n: int, log_na: int,
+                 log_n1: int, sms: int) -> list:
+    """The `__global__` launches of one large-ring transform, in order:
+    (entry point, the ints that follow (L, batch) in its arguments), i.e.
+    (G, log_n, log_na, log_c or log_chunk[, log_n1])."""
+    log_c, log_chunk = large_geometry(log_n, log_na)
+    groups = lambda ctas, elems: poly_groups(batch, L * ctas, resident_ctas(sms, elems // 16))
+    d = "inv" if inverse else "fwd"
+    if kind == CLUSTER:
+        log_c, ctas = cluster_geometry(log_n, log_na)
+        return [(f"rfhe_ntt_{d}_cluster",
+                 (groups(ctas, 1 << (log_na + log_c)), log_n, log_na, log_c, log_n1))]
+    col = (f"rfhe_ntt_{d}_col", (groups(1 << (log_n - log_na - log_c), 1 << (log_na + log_c)),
+                                 log_n, log_na, log_c))
+    row = (f"rfhe_ntt_{d}_row", (groups(1 << (log_n - log_chunk), 1 << log_chunk),
+                                 log_n, log_na, log_chunk, log_n1))
+    return [row, col] if inverse else [col, row]
+
+
+@lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def find_nvcc() -> str:
@@ -143,10 +243,12 @@ class NttKernels:
             signatures = {
                 "rfhe_ntt_fwd": [ptr] * 6 + [num] * 3 + [ptr],
                 "rfhe_ntt_inv": [ptr] * 6 + [num] * 3 + [ptr],
-                "rfhe_ntt_fwd_col": [ptr] * 5 + [num] * 5 + [ptr],
-                "rfhe_ntt_inv_col": [ptr] * 5 + [num] * 5 + [ptr],
-                "rfhe_ntt_fwd_row": [ptr] * 6 + [num] * 5 + [ptr],
-                "rfhe_ntt_inv_row": [ptr] * 6 + [num] * 5 + [ptr],
+                "rfhe_ntt_fwd_col": [ptr] * 5 + [num] * 6 + [ptr],
+                "rfhe_ntt_inv_col": [ptr] * 5 + [num] * 6 + [ptr],
+                "rfhe_ntt_fwd_row": [ptr] * 5 + [num] * 7 + [ptr],
+                "rfhe_ntt_inv_row": [ptr] * 5 + [num] * 7 + [ptr],
+                "rfhe_ntt_fwd_cluster": [ptr] * 5 + [num] * 7 + [ptr],
+                "rfhe_ntt_inv_cluster": [ptr] * 5 + [num] * 7 + [ptr],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
@@ -156,50 +258,45 @@ class NttKernels:
         return self._lib
 
     def launch(self, inverse: bool, x: torch.Tensor, plan,
-               split: Optional[int] = None) -> torch.Tensor:
-        """One transform.  `split` is log2(na) of the large-ring form, 0 for
-        the one-block form, None for `default_split(n)`."""
+               split: Split = None) -> torch.Tensor:
+        """One transform in the form `split` selects (see the module's note)."""
         check_residues(x, plan.L, plan.n, plan.device)
         if x.device.type != "cuda":
             raise ValueError(f"the CUDA NTT takes CUDA tensors, got {x.device}")
         if plan.n > MAX_N:
             raise ValueError(f"n={plan.n} exceeds the largest supported ring {MAX_N}")
-        if split is None:
-            split = default_split(plan.n)
-        if split == 0 and plan.n > MAX_ONE_BLOCK_N:
-            raise ValueError(f"n={plan.n} does not fit one block's shared memory")
-        geometry = large_geometry(plan.log_n, split) if split else None
         B = x.numel() // (plan.L * plan.n)
-        if B > MAX_BATCH:
-            raise ValueError(f"batch {B} exceeds the grid limit {MAX_BATCH}")
+        kind, log_na = resolve_split(plan.n, split, B * plan.L)
+        if kind == "one_block":
+            if plan.n > MAX_ONE_BLOCK_N:
+                raise ValueError(f"n={plan.n} does not fit one block's shared memory")
+            if B > MAX_ONE_BLOCK_BATCH:
+                raise ValueError(f"batch {B} exceeds the one-block grid limit "
+                                 f"{MAX_ONE_BLOCK_BATCH}")
+        else:
+            large_geometry(plan.log_n, log_na)            # raises on a split it does not take
         out = torch.empty_like(x)
         if B == 0:
             return out
         t, lib = plan.tables, self.lib()
-        form = ("inv" if inverse else "fwd") + ("_large" if split else "")
-        shape = (plan.L, B, plan.log_n)
-        tw, consts, limbs = (t.kernel_tw.data_ptr(), t.kernel_consts.data_ptr(),
-                             plan.limb_ids32.data_ptr())
+        form = ("inv" if inverse else "fwd") + ("" if kind == "one_block" else "_large")
+        tables = (t.kernel_tw.data_ptr(), t.kernel_consts.data_ptr())
+        limbs = plan.limb_ids32.data_ptr()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            if not split:
+            if kind == "one_block":
                 fn = lib.rfhe_ntt_inv if inverse else lib.rfhe_ntt_fwd
-                calls = [(fn, (x.data_ptr(), out.data_ptr(), tw, consts,
-                               t.kernel_pos.data_ptr(), limbs, *shape, stream))]
+                calls = [(fn, (x.data_ptr(), out.data_ptr(), *tables, t.kernel_pos.data_ptr(),
+                               limbs, plan.L, B, plan.log_n, stream))]
             else:
-                log_c, log_chunk = geometry
-                tmp = torch.empty(x.numel(), dtype=torch.int32, device=x.device)
-                pos_inv = t.kernel_pos_inv.data_ptr()
-                col = lambda src, dst: (src, dst, tw, consts, limbs, *shape,
-                                        split, log_c, stream)
-                row = lambda src, dst: (src, dst, tw, consts, pos_inv, limbs,
-                                        *shape, split, log_chunk, stream)
-                if inverse:
-                    calls = [(lib.rfhe_ntt_inv_row, row(x.data_ptr(), tmp.data_ptr())),
-                             (lib.rfhe_ntt_inv_col, col(tmp.data_ptr(), out.data_ptr()))]
-                else:
-                    calls = [(lib.rfhe_ntt_fwd_col, col(x.data_ptr(), tmp.data_ptr())),
-                             (lib.rfhe_ntt_fwd_row, row(tmp.data_ptr(), out.data_ptr()))]
+                passes = large_passes(kind, inverse, plan.L, B, plan.log_n, log_na,
+                                      plan.n1.bit_length() - 1, sm_count(x.device.index))
+                # two passes go through a uint32 intermediate
+                scratch = [torch.empty(x.numel(), dtype=torch.int32, device=x.device)
+                           for _ in passes[1:]]
+                ptrs = [x.data_ptr(), *(s.data_ptr() for s in scratch), out.data_ptr()]
+                calls = [(getattr(lib, name), (src, dst, *tables, limbs, plan.L, B, *ints, stream))
+                         for (name, ints), src, dst in zip(passes, ptrs, ptrs[1:])]
             for fn, args in calls:
                 rc = fn(*args)
                 if rc != 0:
@@ -213,11 +310,11 @@ class NttKernels:
 KERNELS = NttKernels()
 
 
-def fwd(x: torch.Tensor, plan, split: Optional[int] = None) -> torch.Tensor:
+def fwd(x: torch.Tensor, plan, split: Split = None) -> torch.Tensor:
     """Forward NTT kernel (replaces ntt_fused.py:_fwd_kernel)."""
     return KERNELS.launch(False, x, plan, split)
 
 
-def inv(y: torch.Tensor, plan, split: Optional[int] = None) -> torch.Tensor:
+def inv(y: torch.Tensor, plan, split: Split = None) -> torch.Tensor:
     """Inverse NTT kernel (replaces ntt_fused.py:_inv_kernel)."""
     return KERNELS.launch(True, y, plan, split)

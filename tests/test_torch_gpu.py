@@ -34,7 +34,8 @@ def _check(plan, x, split=None):
     y = ntt_cuda.fwd(x, plan, split)
     back = ntt_cuda.inv(y, plan, split)
     torch.cuda.synchronize()
-    large = "_large" if (ntt_cuda.default_split(plan.n) if split is None else split) else ""
+    kind, _ = ntt_cuda.resolve_split(plan.n, split, x.shape[0] * plan.L)
+    large = "" if kind == "one_block" else "_large"
     after = ntt_cuda.KERNELS.launches
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == \
         {"fwd" + large: 1, "inv" + large: 1}
@@ -62,12 +63,12 @@ def test_kernels_match_plain(cuda, n, bits):
                                      (65536, 30), (65536, 31)])
 def test_large_ring_kernels_match_plain(cuda, n, bits):
     """The form each large ring takes by default, through `NttPlan.fwd/inv`,
-    and the large-ring form at its default split."""
+    and both large-ring kernels at the ring's own split."""
     plan = NttPlan.make(n, find_ntt_primes(n, bits, 4), cuda).take([3, 0, 2])
     x = _rand(plan, 3, n)
     y = _check(plan, x)
-    log_n = n.bit_length() - 1
-    assert torch.equal(ntt_cuda.fwd(x, plan, log_n - log_n // 2), y)
+    for kind in (ntt_cuda.TWO_PASS, ntt_cuda.CLUSTER):
+        assert torch.equal(_check(plan, x, (kind, ntt_cuda.large_split(n))), y)
     assert torch.equal(plan.fwd(x), y) and torch.equal(plan.inv(y), x)
 
 
@@ -78,16 +79,39 @@ def test_one_block_form_with_opt_in_shared_memory(cuda, n):
     _check(plan, _rand(plan, 2, n), split=0)
 
 
-@pytest.mark.parametrize("n, split", [(256, 1), (256, 4), (256, 7), (4096, 6), (4096, 9),
-                                      (8192, 1), (8192, 12)])
-def test_split_form_matches_one_block_kernels(cuda, n, split):
-    """The large-ring form at small n with an explicit split, against the
+@pytest.mark.parametrize("kind", [ntt_cuda.TWO_PASS, ntt_cuda.CLUSTER])
+@pytest.mark.parametrize("n, split", [(256, 4), (256, 7), (2048, 4), (4096, 5), (4096, 6),
+                                      (4096, 8), (8192, 5), (8192, 8)])
+def test_split_form_matches_one_block_kernels(cuda, n, split, kind):
+    """The large-ring kernels at small n with an explicit split, against the
     one-block kernels and the plain versions."""
     plan = NttPlan.make(n, find_ntt_primes(n, 31, 3), cuda).take([1, 2])
     x = _rand(plan, 2, n + split)
-    y = _check(plan, x, split)
+    y = _check(plan, x, (kind, split))
     assert torch.equal(y, ntt_cuda.fwd(x, plan, 0))
     assert torch.equal(ntt_cuda.inv(y, plan, 0), x)
+
+
+@pytest.mark.parametrize("kind", [ntt_cuda.TWO_PASS, ntt_cuda.CLUSTER])
+@pytest.mark.parametrize("batch", [1, 5, 23, 70000])
+def test_polynomial_groups_on_the_card(cuda, kind, batch):
+    """Batches of one, of groups of uneven length (5 over 2, 23 over 5) and
+    beyond grid.y's 65535, lazy and strict limbs together."""
+    n = 256 if batch > 64 else 16384
+    primes = find_ntt_primes(n, 30, 2) + find_ntt_primes(n, 31, 1)
+    plan = NttPlan.make(n, primes, cuda)
+    _check(plan, _rand(plan, batch, batch), (kind, ntt_cuda.large_split(n) if n > 256 else 4))
+
+
+def test_launch_size_picks_the_large_ring_kernels(cuda):
+    """By itself a launch of few vectors takes the cluster kernels (one
+    __global__ launch), a launch of many the two passes (two)."""
+    n = 32768
+    plan = NttPlan.make(n, find_ntt_primes(n, 30, 8), cuda)
+    for batch, passes in ((2, 1), (ntt_cuda.CLUSTER_MAX_VECTORS // 8 + 1, 2)):
+        before = ntt_cuda.KERNELS.passes["fwd_large"]
+        _check(plan, _rand(plan, batch, batch))
+        assert ntt_cuda.KERNELS.passes["fwd_large"] - before == passes
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -96,6 +120,8 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         ntt_cuda.fwd(x, plan, 0)                 # 256 KB does not fit one block
     with pytest.raises(ValueError):
-        ntt_cuda.fwd(x, plan, 16)                # nb = 1
+        ntt_cuda.fwd(x, plan, 12)                # nb = 16 but na = 4096 rows
+    with pytest.raises(ValueError):
+        ntt_cuda.fwd(x, plan, ("rows", 8))       # no such form
     with pytest.raises(ValueError):
         ntt_cuda.fwd(x.cpu(), plan)              # a CPU tensor never reaches the kernel
