@@ -16,7 +16,8 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
      n=256 and 4096 against the one-block kernels
   4. N=4096 path: CKKS with 21 ciphertext primes and one special prime (the
      reference's bench.py configuration): encode, encrypt, rotate by 1,
-     decrypt; multiply_relin, rescale, decrypt; the same seed on the CPU
+     decrypt; multiply_relin, rescale, decrypt; the keyswitch digits of c1
+     through the forward NTT and back; the same seed on the CPU
      (plain versions) gives identical keys, ciphertexts and decrypted words
   5. N=65536 path, per-limb digits (21 + 1 limbs): the same ops; a second
      run of the same seed on the card with the plain NTTs gives identical
@@ -28,7 +29,9 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
   8. launch counts per rotation at each ring and for dnum=3
   9. times with CUDA events: each kernel form against its plain version at
      every shape a rotation launches, (21, 22, n), (2, 21, n), (1, 21, n),
-     (2, 1, n) and (3, 28, 65536), and warm rotations
+     (2, 1, n) and (3, 28, 65536), at (5, 22, n) and (10, 22, n), between which
+     a launch changes from the cluster kernels to the two passes, and warm
+     rotations
 
 The third-to-last line is the per-kernel JSON record, the second-to-last
 names the card and its power limit; the last line is
@@ -38,13 +41,12 @@ from __future__ import annotations
 
 import contextlib
 import json
-import subprocess
 import time
 
 import numpy as np
 import torch
 
-from rfhe_tpu_torch.device import to_numpy_u32
+from rfhe_tpu_torch.device import card, cuda_ms, to_numpy_u32
 from rfhe_tpu_torch.fhe import CkksContext, CkksParams
 from rfhe_tpu_torch.fhe.keys import compute_digits
 from rfhe_tpu_torch.fhe.params import make_prime_chain
@@ -83,13 +85,6 @@ OPS_PER_BUTTERFLY = 12           # Shoup product 6, modular add 3, modular sub 3
 OPS_PER_SCALE = 6                # the exit factor: one Shoup product
 
 
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def phase_toolchain() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs one GPU")
@@ -111,7 +106,7 @@ def phase_build() -> None:
     ntt_cuda.KERNELS.lib()
     print(f"[build] {ntt_cuda.library_path().name} in {time.perf_counter() - t0:.2f} s")
     for line in report.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
 
 
@@ -262,12 +257,19 @@ def run_path(device: str, params: dict, dnum=None, twice: bool = False) -> tuple
               ("rescale(x*x) decrypts to z^2",
                np.abs(ctx.decrypt_decode(sq) - z * z).max(), LIMITS[n][1])]
     # the keyswitch digits of c1 and their NTT, as `keyswitch` computes them
+    # and back: the only inverse transform of a whole digit tensor, which the
+    # evaluator itself never needs (its inverse launches are c1 and the special
+    # limbs, 1 to 28 vectors)
     dig, _, lim = compute_digits(poly_intt(ct.c[1], ctx.ctx).data, ct.level, ctx.ctx, ctx.L, dnum)
+    dig_plan = ctx.ctx.plan.take(lim)
+    dig_ntt = dig_plan.fwd(dig)
+    if not torch.equal(dig_plan.inv(dig_ntt), dig):
+        raise RuntimeError("inv(fwd(digits)) != digits")
     arrays = {"encrypt": ct.to_numpy(), "rotate": rot.to_numpy(), "mul_relin_rescale": sq.to_numpy(),
-              "digits_ntt": [to_numpy_u32(ctx.ctx.plan.take(lim).fwd(dig))],
+              "digits_ntt": [to_numpy_u32(dig_ntt)],
               "rotate_words": [w.cpu().numpy() for w in ctx.decrypt_words(rot)],
               "square_words": [w.cpu().numpy() for w in ctx.decrypt_words(sq)]}
-    del dig
+    del dig, dig_ntt
     if twice:
         sq2 = ctx.rescale(ctx.multiply_relin(sq, sq))
         low = ctx.rotate(sq2, 1)
@@ -300,7 +302,8 @@ def drive_counted(tag: str, what: str, params: dict, dnum=None, twice: bool = Fa
     t0 = time.perf_counter()
     ctx, arrays, checks = run_path("cuda", params, dnum, twice)
     secs = time.perf_counter() - t0
-    launches, passes = dict(ntt_cuda.KERNELS.launches), dict(ntt_cuda.KERNELS.passes)
+    k = ntt_cuda.KERNELS
+    launches, passes, by_kernels = dict(k.launches), dict(k.passes), dict(k.by_kernels)
     print(f"[{tag}] {what}, seed {SEED} on cuda: keygen, encrypt, rotate(1), multiply_relin, "
           f"rescale{' (twice), rotate' if twice else ''}, decrypts in {secs:.2f} s "
           f"(first call, keys included)")
@@ -308,21 +311,22 @@ def drive_counted(tag: str, what: str, params: dict, dnum=None, twice: bool = Fa
         print(f"[{tag}] {name}: max abs err {e:.3e} (limit {limit:g})")
         if not e <= limit:
             raise RuntimeError(f"{what}: {name} fails its limit")
-    print(f"[{tag}] kernel launches on this path: {launches}; __global__ launches: {passes}")
+    print(f"[{tag}] kernel launches on this path: {launches}; by the kernels that ran: "
+          f"{by_kernels}; __global__ launches: {passes}")
     large = "_large" if ntt_cuda.default_split(params["n"]) else ""
     if launches["fwd" + large] == 0 or launches["inv" + large] == 0:
         raise RuntimeError(f"{what} did not launch both kernels: {launches}")
-    return ctx, arrays, launches
+    return ctx, arrays, launches, by_kernels
 
 
 def phase_main_path() -> tuple:
-    ctx, arrays, launches = drive_counted("main", "CKKS N=4096, 21+1 limbs", BENCH)
+    ctx, arrays, launches, by_kernels = drive_counted("main", "CKKS N=4096, 21+1 limbs", BENCH)
     t0 = time.perf_counter()
     _, cpu_arrays, _ = run_path("cpu", BENCH)
     count = same_arrays(arrays, cpu_arrays, "N=4096 cuda vs cpu")
     print(f"[parity] {count} arrays ({', '.join(arrays)}) identical on cuda and cpu "
           f"(cpu run {time.perf_counter() - t0:.1f} s)")
-    return ctx, launches
+    return ctx, launches, by_kernels
 
 
 def phase_large_per_limb() -> tuple:
@@ -330,7 +334,8 @@ def phase_large_per_limb() -> tuple:
     butterflies over (21, 22, 65536) takes minutes, so the full path is held
     against the plain versions on the card, array by array, and the CPU
     comparison runs at a shallower chain of the same ring."""
-    ctx, arrays, launches = drive_counted("large", "CKKS N=65536, 21+1 limbs, per-limb digits", LARGE)
+    ctx, arrays, launches, by_kernels = drive_counted(
+        "large", "CKKS N=65536, 21+1 limbs, per-limb digits", LARGE)
     ntt_cuda.KERNELS.reset_counts()
     t0 = time.perf_counter()
     with plain_ntt_on_card():
@@ -347,11 +352,11 @@ def phase_large_per_limb() -> tuple:
     count = same_arrays(shallow_cuda, shallow_cpu, "N=65536 shallow chain, cuda vs cpu")
     print(f"[large] CPU comparison at a shallower chain of the same ring (N=65536, 3+1 limbs): "
           f"{count} arrays identical on cuda and cpu ({time.perf_counter() - t0:.1f} s)")
-    return ctx, launches
+    return ctx, launches, by_kernels
 
 
 def phase_large_grouped() -> tuple:
-    ctx, arrays, launches = drive_counted(
+    ctx, arrays, launches, by_kernels = drive_counted(
         "grouped", f"CKKS N=65536, 21+7 limbs, dnum={DNUM}", LARGE, DNUM, twice=True)
     shape = tuple(ctx.rlk.b.shape)
     if shape != (DNUM, 28, 65536):
@@ -361,7 +366,7 @@ def phase_large_grouped() -> tuple:
     count = same_arrays(arrays, cpu_arrays, "N=65536 dnum=3 cuda vs cpu")
     print(f"[grouped] keys of shape {shape}; {count} arrays ({', '.join(arrays)}) identical on "
           f"cuda and cpu (cpu run {time.perf_counter() - t0:.1f} s)")
-    return ctx, launches
+    return ctx, launches, by_kernels
 
 
 def phase_mid_rings() -> dict:
@@ -397,32 +402,23 @@ def phase_counts(ctxs: dict) -> dict:
         ctx.rotate(ct, 1)
         torch.cuda.synchronize()
         k = ntt_cuda.KERNELS
+        ran = {name: count for name, count in k.by_kernels.items() if count}
         print(f"[counts] per rotation, {name}: fwd {k.fwd_launches}, inv {k.inv_launches} "
-              f"(by form {k.launches}; __global__ launches {k.passes})")
+              f"(by form {k.launches}; by the kernels that ran {ran}; "
+              f"__global__ launches {k.passes})")
         cts[name] = ct
     return cts
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound_ms(batch: int, L: int, n: int) -> tuple:
+def bound_ms(batch: int, L: int, n: int, kind: str) -> tuple:
     """(ms, 'bytes' or 'operations'): the least time the card could take for
-    one transform of (batch, L, n) int64 residues.  Bytes: the input read and
-    the output written once, plus the direction's twiddle and Shoup rows of
-    the L limbs and the slot table.  Operations: n/2·log2(n) butterflies and
-    n exit products per vector."""
+    one transform of (batch, L, n) int64 residues by the kernels `kind`.
+    Bytes: the input read and the output written once, plus the direction's
+    twiddle and Shoup rows of the L limbs and, in the one-block kernels only,
+    the slot table (the large-ring kernels compute the slot and read none).
+    Operations: n/2·log2(n) butterflies and n exit products per vector."""
     log_n = n.bit_length() - 1
-    moved = 2 * 8 * batch * L * n + L * 2 * n * 4 + n * 4
+    moved = 2 * 8 * batch * L * n + L * 2 * n * 4 + (n * 4 if kind == "one_block" else 0)
     ops = batch * L * (n // 2 * log_n * OPS_PER_BUTTERFLY + n * OPS_PER_SCALE)
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -442,7 +438,6 @@ def time_forms(c: str, plan: NttPlan, batch: int, splits: list) -> dict:
     x = torch.randint(0, 1 << 62, (batch, plan.L, plan.n), device="cuda", generator=g) % q
     y = plan.fwd(x)
     plain_reps = 20 if plan.n <= 4096 else 4
-    b_ms, b_by = bound_ms(batch, plan.L, plan.n)
     out = {}
     for d, data, kern, plain in (("fwd", x, ntt_cuda.fwd, ntt_fwd_reference),
                                  ("inv", y, ntt_cuda.inv, ntt_inv_reference)):
@@ -451,6 +446,7 @@ def time_forms(c: str, plan: NttPlan, batch: int, splits: list) -> dict:
         p2 = cuda_ms(lambda: plain(data, plan), plain_reps)
         for s, (k1, k2) in ks.items():
             kind = kind_of(plan, batch, s)
+            b_ms, b_by = bound_ms(batch, plan.L, plan.n, kind)
             working = x.numel() * (20 if kind == ntt_cuda.TWO_PASS else 16)
             in_l2 = working < L2_BYTES
             taken = " (default)" if kind == kind_of(plan, batch, None) else ""
@@ -495,6 +491,10 @@ def phase_times(ctxs: dict, cts: dict, c: str) -> dict:
         times[f"{n} mod-down delta"] = time_forms(c, grouped.slice(21), 2, forms)
         times[f"{n} c1"] = time_forms(c, grouped.slice(21), 1, forms)
         times[f"{n} special limb"] = time_forms(c, grouped.take([21]), 2, forms)
+        # between the grouped digits' 84 vectors and the per-limb digits' 462:
+        # where `ntt_cuda.large_form` changes kernels
+        times[f"{n} five polynomials"] = time_forms(c, grouped.slice(22), 5, forms)
+        times[f"{n} ten polynomials"] = time_forms(c, grouped.slice(22), 10, forms)
         if n == 65536:
             times["65536 grouped digits"] = time_forms(c, grouped, DNUM, forms)
     return times
@@ -526,19 +526,23 @@ def main() -> None:
     phase_build()
     err = phase_kernels()
     ctxs, launches = {}, dict.fromkeys(ntt_cuda.FORMS, 0)
+    by_kernels = dict.fromkeys(ntt_cuda.KERNEL_SETS, 0)
     paths = {"N=4096": phase_main_path, "N=65536": phase_large_per_limb,
              f"N=65536 dnum={DNUM}": phase_large_grouped}
     for name, phase in paths.items():
-        ctxs[name], path_launches = phase()
+        ctxs[name], path_launches, path_kernels = phase()
         for form, count in path_launches.items():
             launches[form] += count
+        for kernels, count in path_kernels.items():
+            by_kernels[kernels] += count
     for n, (ctx, _, ring_launches) in phase_mid_rings().items():
         ctxs[f"N={n}"] = ctx
         for form, count in ring_launches.items():
             launches[form] += count
     print(f"[main] kernel launches over all counted paths: {launches}")
-    if min(launches.values()) == 0:
-        raise RuntimeError(f"a kernel form was launched on no path: {launches}")
+    print(f"[main] on the N=4096 and the two N=65536 paths, by the kernels that ran: {by_kernels}")
+    if min(launches.values()) == 0 or min(by_kernels.values()) == 0:
+        raise RuntimeError(f"kernels that no path launched: {launches}, {by_kernels}")
     cts = phase_counts(ctxs)
     times = phase_times(ctxs, cts, c)
     print(json.dumps({"kernels": kernel_records(err, launches, times)}))

@@ -191,7 +191,10 @@ ntt_inv_kernel(const int64_t* __restrict__ y, int64_t* __restrict__ x,
 //    shared memory where a warp shares them (read as a broadcast).
 //  * Loads in flight while a tile computes.  The next polynomial's 16 words
 //    are loaded into registers before the current one's rounds run; only the
-//    low word of each int64 residue is loaded.
+//    low word of each int64 residue is loaded.  Staging the whole words in
+//    shared memory by 16-byte cp.async requests instead was 2-3% slower in the
+//    forward cluster kernel at n >= 32768 on an H100 (the build variant
+//    RFHE_NTT_CLUSTER_CP_ASYNC below, timed by time_ntt.py); TMA is untried.
 //  * Contiguous slot rows.  Network position j holds slot
 //    p = brev(j / n1)·n1 + brev(j mod n1) (n1 the slot order's split).  The
 //    kernels compute it with __brev; there is no slot table.  With nb = n1,
@@ -206,8 +209,8 @@ ntt_inv_kernel(const int64_t* __restrict__ y, int64_t* __restrict__ x,
 //    barrier.  16 bytes per element and one launch.  The two-pass kernels do
 //    the same phases with a uint32 intermediate in global memory between
 //    them (24 bytes per element, two launches).  On an H100 the cluster
-//    kernels win or draw for launches of up to about a hundred vectors and
-//    the two passes win above: a cluster's CTAs run in step, polynomial by
+//    kernels win or draw for launches of up to 3·28·65536 words and the two
+//    passes win above: a cluster's CTAs run in step, polynomial by
 //    polynomial, and what a CTA does between two barriers (loads, 64
 //    butterflies a thread, stores) overlaps little, while the passes' CTAs
 //    are independent and each does half the arithmetic per byte.
@@ -706,6 +709,24 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
+#ifdef RFHE_NTT_CLUSTER_CP_ASYNC
+// Timing only (time_ntt.py --cp-async): the forward cluster kernel fetches the
+// next polynomial's column tile as whole int64 words with cp.async, 16 bytes a
+// request, into a staging buffer of shared memory (na rows x C columns,
+// dense), in place of the register prefetch of the low words.  x must be
+// 16-byte aligned.
+__device__ __forceinline__ void stage_coeffs(int64_t* st, const int64_t* __restrict__ x,
+                                             size_t off, int col0, const Large& g, int log_c) {
+  const int log_p = log_c - 1;                       // 16-byte pieces in a row of the tile
+  for (int i = threadIdx.x; i < (1 << (g.log_na + log_p)); i += blockDim.x) {
+    const int r = i >> log_p, piece = i & ((1 << log_p) - 1);
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(st + 2 * i);
+    const int64_t* src = x + off + ((size_t)r << g.log_nb) + col0 + 2 * piece;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
+  }
+}
+#endif
+
 __global__ void __launch_bounds__(kLargeThreads)
 ntt_fwd_cluster_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ y,
                        const uint32_t* __restrict__ tw, const uint32_t* __restrict__ consts,
@@ -721,7 +742,13 @@ ntt_fwd_cluster_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ y,
   ColThread ct;
   RowThread rt;
   uint2 tw_lo[kSlots];
+#ifdef RFHE_NTT_CLUSTER_CP_ASYNC
+  int64_t* st = reinterpret_cast<int64_t*>(sm);      // tile int64: the staged coefficients
+  uint32_t* p = sm + 2 * tile;
+  p += col_setup(g, log_c, false, p, ct);
+#else
   uint32_t* p = sm + col_setup(g, log_c, false, sm, ct);
+#endif
   p += row_setup(g, base, tile, p, rt, tw_lo);
   uint32_t* recv = p;                                // 2 x padded: my rows, pushed by all
   uint32_t* xb = recv + 2 * padded;                  // padded: the row exchange
@@ -730,14 +757,30 @@ ntt_fwd_cluster_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ y,
   const int log_rows = log_na - log_k;               // rows a CTA owns: 2^log_rows
   const size_t n = (size_t)1 << log_n;
   const int G = gridDim.y;
-  uint32_t a[16], nxt[16];
   int b = blockIdx.y;
+#ifdef RFHE_NTT_CLUSTER_CP_ASYNC
+  uint32_t a[16];
+  if (b < B) stage_coeffs(st, x, ((size_t)b * L + g.l) * n, rank << log_c, g, log_c);
+#else
+  uint32_t a[16], nxt[16];
   if (b < B) load_coeffs(nxt, x, ((size_t)b * L + g.l) * n, col, g, ct);
+#endif
   // every CTA of the cluster is running before any shared memory is written
   cluster.sync();
   auto produce = [&](int bb, int k) {                // column phase of polynomial bb
+#ifdef RFHE_NTT_CLUSTER_CP_ASYNC
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      a[e] = reinterpret_cast<const uint32_t*>(st)[2 * ((col_row_hi(g, ct, e) << log_c) + ct.c)];
+    __syncthreads();
+    if (bb + G < B)
+      stage_coeffs(st, x, ((size_t)(bb + G) * L + g.l) * n, rank << log_c, g, log_c);
+#else
     copy16(a, nxt);
     if (bb + G < B) load_coeffs(nxt, x, ((size_t)(bb + G) * L + g.l) * n, col, g, ct);
+#endif
     if (g.lazy) fwd_col_phase<true>(a, cb, g, ct, log_c);
     else fwd_col_phase<false>(a, cb, g, ct, log_c);
 #pragma unroll
@@ -920,8 +963,11 @@ int launch_cluster(bool inverse, const void* in, void* out, const void* tw,
   const dim3 grid(L * k, G);
   const size_t tw_bytes = col_tw_bytes(log_na) + row_tw_bytes(tile);
   const size_t tile_bytes = tile_words(log_na, log_c) * sizeof(uint32_t);
-  const size_t smem = tw_bytes + tile_bytes + padded_bytes(tile) +
+  size_t smem = tw_bytes + tile_bytes + padded_bytes(tile) +
       2 * (inverse ? tile_bytes : padded_bytes(tile));
+#ifdef RFHE_NTT_CLUSTER_CP_ASYNC
+  if (!inverse) smem += (size_t)tile * sizeof(int64_t);
+#endif
   return launch_large(inverse ? ntt_inv_cluster_kernel : ntt_fwd_cluster_kernel, grid,
                       tile / 16, smem, k, stream, (const int64_t*)in, (int64_t*)out,
                       (const uint32_t*)tw, (const uint32_t*)consts,

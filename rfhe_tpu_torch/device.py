@@ -1,10 +1,12 @@
-"""The numpy/torch boundary and device checks.
+"""The numpy/torch boundary, device checks and the card's name and clock.
 
 Residues live on the device as torch.int64: every q < 2^31, so the product
 of two residues is < 2^62 and exact.  uint32 numpy arrays (the JAX package's
 storage) are converted only here, at the edges.
 """
 from __future__ import annotations
+
+import subprocess
 
 import numpy as np
 import torch
@@ -40,3 +42,26 @@ def check_residues(x: torch.Tensor, L: int, n: int, device: torch.device) -> Non
     if not x.is_contiguous():
         raise ValueError("expected a contiguous tensor")
     check_device(x, device, "input")
+
+
+def card() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them; every
+    measured number is written beside it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    """Milliseconds per call of `fn` on the current CUDA stream: CUDA events
+    around `reps` calls after 3 warm-ups."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

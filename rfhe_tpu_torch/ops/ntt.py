@@ -17,7 +17,7 @@ Both are computed as radix-2 butterfly networks: Cooley-Tukey forward on
 bit-reversed ψ powers (output in bit-reversed order), Gentleman-Sande
 inverse.  Slot p of the forward output is read from position brev(nu[p]);
 `pos` holds that index.  On a CUDA tensor `NttPlan.fwd/inv` launch the
-kernels of `ops/ntt_cuda.py` (one block per vector up to n = 16384, the
+kernels of `ops/ntt_cuda.py` (one block per vector up to n = 8192, the
 large-ring form above); on a CPU tensor they run the plain versions below,
 which do the same butterflies with `(a*w) % q` on int64 tensors.  The
 large-ring kernels compute the slot of a network position in closed form,
@@ -89,16 +89,6 @@ def slot_of_position(n: int, n1: int) -> np.ndarray:
     The large-ring kernels compute this with `__brev` and read no slot table."""
     j = np.arange(n, dtype=np.int64)
     return _bit_reverse(n // n1)[j // n1] * n1 + _bit_reverse(n1)[j % n1]
-
-
-def slot_rows_contiguous(n: int, n1: int, log_na: int) -> bool:
-    """Whether every row of the split n = na·nb (position j = r·nb + c) is one
-    contiguous row of slots, slot row brev(r) with its columns bit-reversed:
-    slot_of_position(r·nb + c) = brev(r)·nb + brev(c).  It holds when nb = n1."""
-    nb = n >> log_na
-    j = np.arange(n, dtype=np.int64)
-    want = _bit_reverse(n // nb)[j // nb] * nb + _bit_reverse(nb)[j % nb]
-    return bool(np.array_equal(slot_of_position(n, n1), want))
 
 
 def _pow_table(base: int, count: int, q: int) -> np.ndarray:

@@ -33,8 +33,8 @@ Importing this module needs no nvcc and no GPU.
 
 `fwd`/`inv` take int64 tensors (..., L, n) on a CUDA device, allocate the
 output (and the intermediate), launch on the current stream and count one
-launch of the form's kernel in `KERNELS.launches` and each `__global__`
-launch in `KERNELS.passes`.  Anything the kernels do not take raises; there
+launch of the form's kernel in `KERNELS.launches` (and, by the kernels that
+ran, in `KERNELS.by_kernels`) and each `__global__` launch in `KERNELS.passes`.  Anything the kernels do not take raises; there
 is no fallback.
 """
 from __future__ import annotations
@@ -64,9 +64,10 @@ MIN_LARGE_N = 256         # a row-phase chunk is a multiple of 256 words
 LOG_COLS = 5              # a column tile is at most 32 columns wide,
 LOG_COLS_CLUSTER = 4      # 16 in the cluster kernels (two CTAs of 256 threads per SM)
 LOG_CHUNK = 12            # a row pass works on chunks of at most 4096 words
-CLUSTER_MAX_VECTORS = 128  # batch·L up to which the cluster kernels are the default
+CLUSTER_MAX_WORDS = 3 * 28 * 65536  # batch·L·n up to which the cluster kernels are the default
 FORMS = ("fwd", "inv", "fwd_large", "inv_large")
 CLUSTER, TWO_PASS = "cluster", "two_pass"
+KERNEL_SETS = tuple(f"{d}_{kind}" for d in ("fwd", "inv") for kind in ("one_block", TWO_PASS, CLUSTER))
 Split = Union[None, int, Tuple[str, int]]
 
 
@@ -86,15 +87,21 @@ def default_split(n: int) -> int:
     return 0 if n <= MAX_ONE_BLOCK_DEFAULT_N else large_split(n)
 
 
-def large_form(vectors: int) -> str:
-    """Which large-ring kernels a launch of `vectors` = batch·L vectors takes
-    by itself.  The cluster kernels move 16 bytes per element in one launch
-    but keep the CTAs of a cluster in step, polynomial by polynomial; the two
-    passes move 24 in two launches of independent CTAs.  On an H100 the
-    cluster kernels win or draw up to about a hundred vectors (a grouped
-    keyswitch's (3, 28, n), the mod-down's (2, 21, n) and (2, 1, n)) and lose
-    by a sixth at (21, 22, n) (chip_smoke.py times both forms)."""
-    return CLUSTER if vectors <= CLUSTER_MAX_VECTORS else TWO_PASS
+def large_form(vectors: int, n: int) -> str:
+    """Which large-ring kernels a launch of `vectors` = batch·L vectors of
+    ring n takes by itself.  The cluster kernels move 16 bytes per element in
+    one launch but keep the CTAs of a cluster in step, polynomial by
+    polynomial; the two passes move 24 in two launches of independent CTAs.
+    On an H100 the crossing follows the launch's size in words.  From
+    (5, 22, 65536), (10, 22, 32768) and (21, 22, 16384) on the two passes win
+    in both directions, by a sixth at (21, 22, 65536).  Up to a grouped
+    keyswitch's (3, 28, 65536), which is (5, 22, 32768) and (10, 22, 16384)
+    at the smaller rings, a transform takes under 75 µs and the forms draw
+    (either leads by up to a fifth from one run to the next, where two
+    launches cost two enqueues of the host); at half that size and below the
+    cluster kernels lead in most readings, by a tenth to a third
+    (chip_smoke.py times both forms at all of these)."""
+    return CLUSTER if vectors * n <= CLUSTER_MAX_WORDS else TWO_PASS
 
 
 def resolve_split(n: int, split: Split, vectors: int) -> Tuple[str, int]:
@@ -107,7 +114,7 @@ def resolve_split(n: int, split: Split, vectors: int) -> Tuple[str, int]:
         if kind not in (CLUSTER, TWO_PASS):
             raise ValueError(f"unknown large-ring form {kind!r}")
         return kind, int(log_na)
-    return ("one_block", 0) if split == 0 else (large_form(vectors), int(split))
+    return ("one_block", 0) if split == 0 else (large_form(vectors, n), int(split))
 
 
 def large_geometry(log_n: int, log_na: int) -> tuple:
@@ -219,11 +226,13 @@ class NttKernels:
     def __init__(self) -> None:
         self.launches = dict.fromkeys(FORMS, 0)   # transforms, by kernel form
         self.passes = dict.fromkeys(FORMS, 0)     # __global__ launches
+        self.by_kernels = dict.fromkeys(KERNEL_SETS, 0)   # transforms, by the kernels that ran
         self._lib: Optional[ctypes.CDLL] = None
 
     def reset_counts(self) -> None:
         self.launches = dict.fromkeys(FORMS, 0)
         self.passes = dict.fromkeys(FORMS, 0)
+        self.by_kernels = dict.fromkeys(KERNEL_SETS, 0)
 
     @property
     def fwd_launches(self) -> int:
@@ -304,6 +313,7 @@ class NttKernels:
                                        f"(n={plan.n}, L={plan.L}, B={B}, split={split})")
                 self.passes[form] += 1
         self.launches[form] += 1
+        self.by_kernels[("inv_" if inverse else "fwd_") + kind] += 1
         return out
 
 

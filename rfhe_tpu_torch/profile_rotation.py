@@ -19,7 +19,6 @@ a separate loop without it.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 from collections import defaultdict
 from typing import Dict, Optional, Tuple
@@ -27,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .device import card
 from .fhe import CkksContext, CkksParams
 
 CHAIN = dict(levels=20, q0_bits=30, scale_bits=28)      # 21 ciphertext primes
@@ -97,11 +97,8 @@ def main() -> None:
     ap.add_argument("--dnum", type=int, default=None)
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     totals, rows = profile_rotation(args.n, args.dnum, args.reps)
-    print(f"[profile] {card}: rotation N={args.n}, 21 ciphertext limbs, dnum={args.dnum}, "
+    print(f"[profile] {card()}: rotation N={args.n}, 21 ciphertext limbs, dnum={args.dnum}, "
           f"{args.reps} reps")
     print(f"[profile] per rotation: wall {totals['wall_us']:.1f} us, host enqueue "
           f"{totals['enqueue_us']:.1f} us, device busy {totals['device_us']:.1f} us "

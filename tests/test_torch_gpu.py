@@ -108,7 +108,7 @@ def test_launch_size_picks_the_large_ring_kernels(cuda):
     __global__ launch), a launch of many the two passes (two)."""
     n = 32768
     plan = NttPlan.make(n, find_ntt_primes(n, 30, 8), cuda)
-    for batch, passes in ((2, 1), (ntt_cuda.CLUSTER_MAX_VECTORS // 8 + 1, 2)):
+    for batch, passes in ((2, 1), (ntt_cuda.CLUSTER_MAX_WORDS // (8 * n) + 1, 2)):
         before = ntt_cuda.KERNELS.passes["fwd_large"]
         _check(plan, _rand(plan, batch, batch))
         assert ntt_cuda.KERNELS.passes["fwd_large"] - before == passes

@@ -21,7 +21,7 @@ from rfhe_tpu_torch import numth as tnumth  # noqa: E402
 from rfhe_tpu_torch.ops.ntt import (  # noqa: E402
     NttPlan, ntt_fwd_reference, ntt_inv_reference, split_n,
 )
-from rfhe_tpu_torch.ops.ntt import slot_of_position, slot_rows_contiguous  # noqa: E402
+from rfhe_tpu_torch.ops.ntt import _bit_reverse, slot_of_position  # noqa: E402
 from rfhe_tpu_torch.ops.ntt_cuda import (  # noqa: E402
     CLUSTER, TWO_PASS, cluster_geometry, default_split, large_geometry, large_passes,
     large_split, poly_groups, resident_ctas, resolve_split,
@@ -519,6 +519,16 @@ def test_large_ring_emulation_matches_pallas_kernel_interpret(kind):
                                   x_k.astype(np.int64))
 
 
+def slot_rows_contiguous(n: int, n1: int, log_na: int) -> bool:
+    """Whether every row of the split n = na·nb (position j = r·nb + c) is one
+    contiguous row of slots, slot row brev(r) with its columns bit-reversed:
+    slot_of_position(r·nb + c) = brev(r)·nb + brev(c).  It holds when nb = n1."""
+    nb = n >> log_na
+    j = np.arange(n, dtype=np.int64)
+    want = _bit_reverse(n // nb)[j // nb] * nb + _bit_reverse(nb)[j % nb]
+    return bool(np.array_equal(slot_of_position(n, n1), want))
+
+
 @pytest.mark.parametrize("kind", [TWO_PASS, CLUSTER])
 def test_large_ring_contiguous_rows_emulated_16384(kind):
     """n = 16384 at the form's own split (128 x 128): the closed-form slot
@@ -606,8 +616,12 @@ def test_default_split_and_geometry(n, want, large):
     kind, log_na = resolve_split(n, None, 21 * 22)
     assert log_na == want and (kind == "one_block") == (want == 0)
     assert default_split(n) == want and large_split(n) == large
-    assert resolve_split(n, large, 21 * 22) == (TWO_PASS, large)       # by the launch's size
+    by_size = TWO_PASS if n >= 16384 else CLUSTER                      # by the launch's size in words
+    assert resolve_split(n, large, 21 * 22) == (by_size, large)
     assert resolve_split(n, large, 3 * 28) == (CLUSTER, large)
+    # the crossing follows the launch's size in words, (3, 28, 65536) the last cluster launch
+    assert resolve_split(n, large, 5 * 22)[0] == (TWO_PASS if n == 65536 else CLUSTER)
+    assert resolve_split(n, large, 10 * 22)[0] == (TWO_PASS if n >= 32768 else CLUSTER)
     assert resolve_split(n, (CLUSTER, large), 21 * 22) == (CLUSTER, large)   # by name
     assert resolve_split(n, (TWO_PASS, large), 2) == (TWO_PASS, large)
     log_n = n.bit_length() - 1
