@@ -8,12 +8,12 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
   2. build: compile csrc/ntt.cu with nvcc and load it
   3. kernels vs plain: every NTT kernel form against its plain PyTorch version
      on the card, bit for bit: the one-block kernels at the N=4096 path's
-     shapes; the one-block, two-pass and cluster kernels at n=16384 and 32768
-     and both large-ring kernels at n=65536 at the large paths' shapes
+     shapes and at every ring they take, n=256 ... 8192; the two-pass and
+     cluster kernels at n=16384, 32768 and 65536 at the large paths' shapes
      (per-limb and grouped digits, special limbs, mod-down deltas,
      non-contiguous takes, 30- and 31-bit primes); batches that the polynomial
-     groups do not divide and a batch of 70000; and the large-ring kernels at
-     n=256 and 4096 against the one-block kernels
+     groups do not divide and a batch of 70000, in every form; and the
+     large-ring kernels at n=256 ... 4096 beside the one-block kernels
   4. N=4096 path: CKKS with 21 ciphertext primes and one special prime (the
      reference's bench.py configuration): encode, encrypt, rotate by 1,
      decrypt; multiply_relin, rescale, decrypt; the keyswitch digits of c1
@@ -25,13 +25,17 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
   6. N=65536 path, grouped digits (dnum=3, 21 + 7 limbs): rotate,
      multiply_relin and rescale twice, a rotation at the lowered level; the
      same seed on the CPU gives identical arrays
-  7. one rotation each at N=16384 and N=32768, 21 + 1 limbs
+  7. one rotation each at N=8192, N=16384 and N=32768, 21+1 limbs
   8. launch counts per rotation at each ring and for dnum=3
-  9. times with CUDA events: each kernel form against its plain version at
-     every shape a rotation launches, (21, 22, n), (2, 21, n), (1, 21, n),
-     (2, 1, n) and (3, 28, 65536), at (5, 22, n) and (10, 22, n), between which
-     a launch changes from the cluster kernels to the two passes, and warm
-     rotations
+  9. times: a trivial launch by the device timer (`device.device_ms`: CUDA
+     events around launches queued behind a blocker on the stream, which reads
+     a kernel's own time also under the host's time per launch), host-paced
+     and by torch.profiler; then each kernel form (device timer, and
+     host-paced events beside it) against its plain version at every shape a
+     rotation launches, (21, 22, n), (2, 21, n), (1, 21, n), (2, 1, n) and
+     (3, 28, 65536), at n=4096 in all three forms, at (5, 22, n) and
+     (10, 22, n), between which a launch changes from the cluster kernels to
+     the two passes, and warm rotations
 
 The third-to-last line is the per-kernel JSON record, the second-to-last
 names the card and its power limit; the last line is
@@ -46,7 +50,8 @@ import time
 import numpy as np
 import torch
 
-from rfhe_tpu_torch.device import card, cuda_ms, to_numpy_u32
+from rfhe_tpu_torch.device import (DEVICE_TIMER, card, cuda_ms, device_ms, profiled_us,
+                                   to_numpy_u32)
 from rfhe_tpu_torch.fhe import CkksContext, CkksParams
 from rfhe_tpu_torch.fhe.keys import compute_digits
 from rfhe_tpu_torch.fhe.params import make_prime_chain
@@ -63,6 +68,7 @@ BENCH = dict(n=4096, **CHAIN)
 LARGE = dict(n=65536, **CHAIN)
 SHALLOW = dict(n=65536, levels=2, q0_bits=30, scale_bits=28)
 LARGE_RINGS = (16384, 32768, 65536)
+ONE_BLOCK_RINGS = (256, 512, 1024, 2048, 4096, 8192)
 DNUM = 3
 SEED = 7
 # Limits on the decrypted slots, (rotation, square) by ring.  The chain's
@@ -71,7 +77,8 @@ SEED = 7
 # low-frequency and grows in a slot about 3.5x per doubling of N (5.6e-4 at
 # N=4096, 6.3e-2 at N=65536 on per-limb digits).  A wrong decryption is off
 # by far more than 1; bit-exactness is held by the array comparisons.
-LIMITS = {4096: (1e-3, 1e-2), 16384: (2e-2, 2e-2), 32768: (6e-2, 5e-2), 65536: (2e-1, 1e-1)}
+LIMITS = {4096: (1e-3, 1e-2), 8192: (5e-3, 2e-2), 16384: (2e-2, 2e-2), 32768: (6e-2, 5e-2),
+          65536: (2e-1, 1e-1)}
 FOURTH_POWER_LIMIT = 2e-1
 
 # The least time the card could take (H100 SXM data sheet): bytes over the
@@ -136,8 +143,8 @@ def test_vectors(plan: NttPlan, batch: int, seed: int) -> list:
 
 def forms_of(n: int) -> list:
     """The selector of every form that ring n can take: the one-block
-    kernels (0) where the ring fits one block, and both large-ring kernels
-    at the ring's own split."""
+    kernels (0) up to n = 8192, and both large-ring kernels at the ring's own
+    split."""
     own = ntt_cuda.large_split(n)
     large = [(ntt_cuda.TWO_PASS, own), (ntt_cuda.CLUSTER, own)]
     return large if n > ntt_cuda.MAX_ONE_BLOCK_N else [0] + large
@@ -161,16 +168,29 @@ def kernel_cases() -> list:
     full = NttPlan.make(4096, chain, "cuda")
     special = len(chain) - 1
     small = NttPlan.make(256, make_prime_chain(256, [30] * 3), "cuda")
+    mixed = lambda n: NttPlan.make(n, make_prime_chain(n, [30, 31, 30, 31]), "cuda").take([3, 0, 1])
     cases = [
         ("n=4096 (21, 22) keyswitch digits", full, 21, [None, (two_pass, 6), (cluster, 6)]),
         ("n=4096 (2, 1) special limb", full.take([special]), 2, [None, (two_pass, 8), (cluster, 4)]),
         ("n=4096 (2, 21) mod-down delta", full.slice(special), 2, [None]),
+        ("n=4096 (1, 21) c1", full.slice(special), 1, [None]),
         ("n=4096 (3, 3) non-contiguous take", full.take([special, 0, 7]), 3, [None, (two_pass, 5), (cluster, 5)]),
+        ("n=4096 31-bit (3, 3)", NttPlan.make(4096, make_prime_chain(4096, [31] * 3), "cuda"), 3, [None]),
+        # 23 polynomials over 11 groups, 5 over 5 of 6 resident: loops of uneven length
+        ("n=4096 (23, 22) uneven groups", full, 23, [None]),
+        ("n=4096 (5, 3) uneven groups", full.take([special, 0, 7]), 5, [None]),
         ("n=2048 31-bit (3, 3)", NttPlan.make(2048, make_prime_chain(2048, [31] * 3), "cuda"), 3,
          [None, (two_pass, 4), (cluster, 7)]),
         ("n=256 30-bit (3, 3)", small, 3, [None, (two_pass, 4), (cluster, 4), (two_pass, 7), (cluster, 7)]),
-        ("n=256 (70000, 1) beyond grid.y", small.take([1]), 70000, [(two_pass, 4), (cluster, 5)]),
+        ("n=256 (70000, 1) beyond grid.y", small.take([1]), 70000, [None, (two_pass, 4), (cluster, 5)]),
     ]
+    for n in (512, 1024, 8192):
+        own = ntt_cuda.large_split(n)
+        cases.append((f"n={n} 30- and 31-bit (3, 3) take", mixed(n), 3, [None, (two_pass, own), (cluster, own)]))
+    ring = NttPlan.make(8192, basis(8192, 1), "cuda")
+    cases += [("n=8192 (21, 22) keyswitch digits", ring, 21, [None]),
+              ("n=8192 (2, 1) special limb", ring.take([21]), 2, [None]),
+              ("n=8192 (23, 6) uneven groups", ring.take([21, 3, 0, 20, 7, 11]), 23, [None])]
     for n in LARGE_RINGS:
         splits = [None] + forms_of(n)
         grouped = NttPlan.make(n, basis(n, 7), "cuda")       # 21 + 7 limbs
@@ -223,8 +243,9 @@ def phase_kernels() -> dict:
         raise RuntimeError(f"a kernel form was never compared: {checked}")
     missing = [(k, n) for n in LARGE_RINGS for k in (ntt_cuda.TWO_PASS, ntt_cuda.CLUSTER)
                if (k, n) not in kinds]
+    missing += [("one_block", n) for n in ONE_BLOCK_RINGS if ("one_block", n) not in kinds]
     if missing:
-        raise RuntimeError(f"large-ring kernels never compared: {missing}")
+        raise RuntimeError(f"kernels never compared: {missing}")
     return err
 
 
@@ -370,10 +391,11 @@ def phase_large_grouped() -> tuple:
 
 
 def phase_mid_rings() -> dict:
-    """One rotation at N=16384 and N=32768, 21 + 1 limbs, so every ring the
-    TPU kernels serve is launched on a real path."""
+    """One rotation at N=8192 (the one-block kernels' 13-stage schedule),
+    N=16384 and N=32768, 21 + 1 limbs, so every ring the TPU kernels serve is
+    launched on a real path."""
     out = {}
-    for n in (16384, 32768):
+    for n in (8192, 16384, 32768):
         ntt_cuda.KERNELS.reset_counts()
         t0 = time.perf_counter()
         ctx = CkksContext(CkksParams.make(n=n, **CHAIN), seed=SEED, device="cuda")
@@ -410,15 +432,14 @@ def phase_counts(ctxs: dict) -> dict:
     return cts
 
 
-def bound_ms(batch: int, L: int, n: int, kind: str) -> tuple:
+def bound_ms(batch: int, L: int, n: int) -> tuple:
     """(ms, 'bytes' or 'operations'): the least time the card could take for
-    one transform of (batch, L, n) int64 residues by the kernels `kind`.
+    one transform of (batch, L, n) int64 residues.
     Bytes: the input read and the output written once, plus the direction's
-    twiddle and Shoup rows of the L limbs and, in the one-block kernels only,
-    the slot table (the large-ring kernels compute the slot and read none).
+    twiddle and Shoup rows of the L limbs (no kernel reads a slot table).
     Operations: n/2·log2(n) butterflies and n exit products per vector."""
     log_n = n.bit_length() - 1
-    moved = 2 * 8 * batch * L * n + L * 2 * n * 4 + (n * 4 if kind == "one_block" else 0)
+    moved = 2 * 8 * batch * L * n + L * 2 * n * 4
     ops = batch * L * (n // 2 * log_n * OPS_PER_BUTTERFLY + n * OPS_PER_SCALE)
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -427,36 +448,61 @@ def bound_ms(batch: int, L: int, n: int, kind: str) -> tuple:
 L2_BYTES = 50e6                  # the card's L2 cache
 
 
+def phase_timer(c: str) -> float:
+    """The device timer on a launch that does next to nothing, (1, 1, 256):
+    it must read well under 10 us, where host-paced events read the host's
+    time per launch.  Returns the device reading in ms: the least any launch
+    costs, and the practical floor under the small launches' byte bounds."""
+    plan = NttPlan.make(256, make_prime_chain(256, [30]), "cuda")
+    x = torch.zeros((1, 1, 256), dtype=torch.int64, device="cuda")
+    launch = lambda: ntt_cuda.fwd(x, plan, 0)
+    dev = [device_ms(launch) for _ in range(2)]
+    paced = cuda_ms(launch)
+    prof_us = profiled_us(launch)
+    print(f"[timer] {c}: device timer = {DEVICE_TIMER}")
+    print(f"[timer] {c}: trivial launch (1, 1, 256) one_block fwd: device timer {dev[0] * 1e3:.2f} / "
+          f"{dev[1] * 1e3:.2f} us, torch.profiler kernel duration {prof_us:.2f} us, "
+          f"host-paced events {paced * 1e3:.2f} us")
+    if not max(dev) < 0.010:
+        raise RuntimeError(f"the device timer reads {max(dev) * 1e3:.1f} us on a trivial launch")
+    return min(dev)
+
+
 def time_forms(c: str, plan: NttPlan, batch: int, splits: list) -> dict:
     """Kernel (each form of `splits`) and plain times of both directions at
-    (batch, L, n), in the order plain, kernel, kernel, plain.  `cuda_ms`
-    repeats one input, so a shape whose working set (input, output and the
-    two passes' uint32 intermediate) is under the L2's 50 MB is served from
-    the cache and the HBM bound is not what binds it: each line says so."""
+    (batch, L, n), in the order plain, kernel, kernel, plain.  The kernels are
+    read twice by the device timer (`device_ms`) and once by host-paced events
+    (`cuda_ms`, what a caller pays who launches them one by one); the plain
+    versions, hundreds of launches each, by host-paced events.  One input is
+    repeated, so a shape whose working set (input, output and the two passes'
+    uint32 intermediate) is under the L2's 50 MB is served from the cache and
+    the HBM bound is not what binds it: each line says so."""
     q = plan.q_arr[:, None]
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randint(0, 1 << 62, (batch, plan.L, plan.n), device="cuda", generator=g) % q
     y = plan.fwd(x)
-    plain_reps = 20 if plan.n <= 4096 else 4
+    plain_reps = 20 if plan.n <= 8192 else 4
+    b_ms, b_by = bound_ms(batch, plan.L, plan.n)
     out = {}
     for d, data, kern, plain in (("fwd", x, ntt_cuda.fwd, ntt_fwd_reference),
                                  ("inv", y, ntt_cuda.inv, ntt_inv_reference)):
         p1 = cuda_ms(lambda: plain(data, plan), plain_reps)
-        ks = {s: [cuda_ms(lambda: kern(data, plan, s)) for _ in range(2)] for s in splits}
+        ks = {s: [device_ms(lambda: kern(data, plan, s)) for _ in range(2)] for s in splits}
+        paced = {s: cuda_ms(lambda: kern(data, plan, s)) for s in splits}
         p2 = cuda_ms(lambda: plain(data, plan), plain_reps)
         for s, (k1, k2) in ks.items():
             kind = kind_of(plan, batch, s)
-            b_ms, b_by = bound_ms(batch, plan.L, plan.n, kind)
             working = x.numel() * (20 if kind == ntt_cuda.TWO_PASS else 16)
             in_l2 = working < L2_BYTES
             taken = " (default)" if kind == kind_of(plan, batch, None) else ""
             print(f"[times] {c}: {d} NTT ({batch}, {plan.L}, {plan.n}) {kind}{taken}: kernel {k1:.4f} / "
-                  f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms (plain, kernel, kernel, plain), "
+                  f"{k2:.4f} ms by the device timer, {paced[s]:.4f} ms host-paced, plain {p1:.4f} / "
+                  f"{p2:.4f} ms host-paced (plain, kernel, kernel, plain), "
                   f"bound {b_ms:.4f} ms by {b_by}, share of bound {200 * b_ms / (k1 + k2):.0f}%, "
                   f"working set {working / 1e6:.1f} MB {'under' if in_l2 else 'over'} the L2")
             out[d, kind] = {"shape": [batch, plan.L, plan.n], "form": kind, "ms": (k1 + k2) / 2,
-                            "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms, "bound_by": b_by,
-                            "default": bool(taken), "working_set_in_l2": in_l2}
+                            "paced_ms": paced[s], "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms,
+                            "bound_by": b_by, "default": bool(taken), "working_set_in_l2": in_l2}
     return out
 
 
@@ -478,11 +524,19 @@ def phase_times(ctxs: dict, cts: dict, c: str) -> dict:
         us = warm_rotate_us(ctxs[name], cts[name], 10)
         print(f"[times] {c}: warm rotate {name}, 21 ciphertext limbs: {us:.1f} us per rotation "
               f"(10 iterations)")
-    bench = NttPlan.make(4096, basis(4096, 1), "cuda")
-    times = {"4096": time_forms(c, bench, 21, [0]),
-             "4096 mod-down delta": time_forms(c, bench.slice(21), 2, [0]),
-             "4096 c1": time_forms(c, bench.slice(21), 1, [0]),
-             "4096 special limb": time_forms(c, bench.take([21]), 2, [0])}
+    floor = phase_timer(c)
+    print(f"[times] {c}: kernel times below are read by the device timer ({DEVICE_TIMER}); a "
+          f"trivial launch reads {floor * 1e3:.2f} us there, the floor under every byte bound")
+    times = {}
+    for n in (4096, 8192):
+        # the shapes one rotation launches, the 31-bit special prime last; at
+        # n = 4096 the large-ring forms beside the one-block form
+        forms = forms_of(n) if n == 4096 else [0]
+        ring = NttPlan.make(n, basis(n, 1), "cuda")
+        times[f"{n}"] = time_forms(c, ring, 21, forms)
+        times[f"{n} mod-down delta"] = time_forms(c, ring.slice(21), 2, forms)
+        times[f"{n} c1"] = time_forms(c, ring.slice(21), 1, forms)
+        times[f"{n} special limb"] = time_forms(c, ring.take([21]), 2, forms)
     for n in LARGE_RINGS:
         forms = forms_of(n)
         grouped = NttPlan.make(n, basis(n, 7), "cuda")
@@ -503,7 +557,8 @@ def phase_times(ctxs: dict, cts: dict, c: str) -> dict:
 def kernel_records(err: dict, launches: dict, times: dict) -> list:
     """One record per kernel form at its path's keyswitch shape, in the form
     that shape takes by itself, with every other shape and form timed in this
-    run under `other_shapes`."""
+    run under `other_shapes`.  `ms` is the device timer's reading, `paced_ms`
+    the host-paced one."""
     records = []
     for d in ("fwd", "inv"):
         for large, key in (("", "4096"), ("_large", "65536")):
@@ -516,6 +571,7 @@ def kernel_records(err: dict, launches: dict, times: dict) -> list:
                             "max_abs_err": err[d + large], "ms": head["ms"],
                             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                             "bound_by": head["bound_by"], "library_ms": None,
+                            "timer": DEVICE_TIMER, "paced_ms": head["paced_ms"],
                             "shape": head["shape"], "form": head["form"],
                             "other_shapes": others})
     return records

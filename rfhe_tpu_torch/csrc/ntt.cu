@@ -1,7 +1,7 @@
-// Negacyclic NTT kernels for Hopper (sm_90a), in two forms: one CTA per
-// (poly, limb) with the whole vector in shared memory, and a large-ring form
-// that splits the vector n = na·nb over the CTAs of a thread-block cluster
-// (one trip through global memory) or over two passes.
+// Negacyclic NTT kernels for Hopper (sm_90a), in two forms: the one-block
+// form, where one CTA holds the whole vector of a (poly, limb), n <= 8192,
+// and the large-ring form, which splits the vector n = na·nb over the CTAs of
+// a thread-block cluster (one trip through global memory) or over two passes.
 //
 // Replace the two Pallas kernels of the JAX package:
 //   rfhe_ntt_fwd, rfhe_ntt_fwd_cluster, rfhe_ntt_fwd_col + rfhe_ntt_fwd_row
@@ -16,38 +16,31 @@
 //   inv: x[t] = n⁻¹ · R⁻¹ · Σ_p y[p] · ψ^(−(2·nu[p]+1)·t)          mod q
 // with the reference's slot order nu (rfhe_tpu/ops/ntt_mxu.py:237-240).
 //
-// One-block form: the n-coefficient vector of one (poly, limb) sits in shared
-// memory as uint32 (16 KB at n = 4096; 64 KB and 128 KB at n = 16384 and
-// 32768, which the launch asks for as opt-in dynamic shared memory).  The forward pass is an in-place
-// Cooley-Tukey network on bit-reversed ψ powers; the inverse pass is the
-// mirrored Gentleman-Sande network on ψ^-1 powers.  Every product is a
-// Shoup multiplication on __umulhi (q < 2^31, residues kept canonical).
-// The forward store applies R and writes slot p from position
-// pos[p] = brev(nu[p]); the inverse load reads slot p into that position and
-// its store applies n⁻¹·R⁻¹.  Per-limb tables are indexed by a limb-id
-// array, so a plan over any subset of the chain shares one set of tables.
-//
-// What bounds it on this card: at n = 4096 each CTA does 12 butterfly
-// stages separated by __syncthreads, on 2048 butterflies each, and reads
-// its input and writes its output once (8 bytes per int64 element).  The
-// arithmetic is small; the kernel is latency- and shared-memory-bound (the
-// stage barriers and the shared-memory traffic of each stage), which is
-// why it runs 512 threads per CTA and keeps several CTAs resident per SM.
-// Above 48 KB of shared memory one to three CTAs are resident per SM and run
-// 1024 threads; there (n = 16384 and 32768) the large-ring form below is the
-// faster on an H100 and the one a ring takes by itself, and the one-block
-// form stays selectable.  n = 65536 (256 KB) does not fit one block.
+// Every form runs the same radix-2 network: Cooley-Tukey forward on
+// bit-reversed ψ powers, the mirrored Gentleman-Sande network on ψ^-1 powers
+// inverse, every product a Shoup multiplication on __umulhi (q < 2^31).  The
+// forward exit applies R and writes network position j to its slot, the
+// inverse entry reads that slot and the inverse exit applies n⁻¹·R⁻¹.
+// Per-limb tables are indexed by a limb-id array, so a plan over any subset
+// of the chain shares one set of tables:
+//   tw:     (Lf, 4, n) uint32 [ψ^brev, Shoup, ψ^-brev, Shoup] per chain limb
+//   consts: (Lf, 8) uint32 [q, R, R', n⁻¹R⁻¹, (n⁻¹R⁻¹)', 0, 0, 0]
+//   limbs:  (L,) chain index of each limb
+//   x, y:   (B, L, n) int64, canonical residues
+// The device functions of the large-ring section below (register rounds,
+// twiddle slots, exchanges, the closed-form slot) serve all kernels; the
+// one-block kernels follow the cluster kernels, whose shape they share.
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kThreads = 512;       // one-block form, n <= 8192
-constexpr int kThreadsBig = 1024;   // one-block form above 48 KB of shared memory
 
 __device__ __forceinline__ uint32_t mul_shoup(uint32_t x, uint32_t w,
                                               uint32_t w_shoup, uint32_t q) {
@@ -66,93 +59,6 @@ __device__ __forceinline__ uint32_t sub_q(uint32_t a, uint32_t b, uint32_t q) {
   return a >= b ? a - b : a + q - b;
 }
 
-// Cooley-Tukey butterfly (forward) and Gentleman-Sande butterfly (inverse)
-// on two shared-memory words.
-__device__ __forceinline__ void ct_butterfly(uint32_t* a, int j1, int j2,
-                                             uint32_t w, uint32_t ws, uint32_t q) {
-  const uint32_t u = a[j1];
-  const uint32_t v = mul_shoup(a[j2], w, ws, q);
-  a[j1] = add_q(u, v, q);
-  a[j2] = sub_q(u, v, q);
-}
-
-__device__ __forceinline__ void gs_butterfly(uint32_t* a, int j1, int j2,
-                                             uint32_t w, uint32_t ws, uint32_t q) {
-  const uint32_t u = a[j1], v = a[j2];
-  a[j1] = add_q(u, v, q);
-  a[j2] = mul_shoup(sub_q(u, v, q), w, ws, q);
-}
-
-// tw:     (Lf, 4, n) uint32 [ψ^brev, Shoup, ψ^-brev, Shoup] per chain limb
-// consts: (Lf, 8) uint32 [q, R, R', n⁻¹R⁻¹, (n⁻¹R⁻¹)', 0, 0, 0]
-// pos:    (n,) brev(nu[p]);  limbs: (L,) chain index of each limb
-// x, y:   (B, L, n) int64, canonical residues
-__global__ void __launch_bounds__(kThreadsBig)
-ntt_fwd_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ y,
-               const uint32_t* __restrict__ tw,
-               const uint32_t* __restrict__ consts,
-               const int32_t* __restrict__ pos,
-               const int32_t* __restrict__ limbs, int L, int log_n) {
-  extern __shared__ uint32_t a[];
-  const int n = 1 << log_n;
-  const int l = blockIdx.x;
-  const int lid = limbs[l];
-  const uint32_t* psi = tw + (size_t)lid * 4 * n;
-  const uint32_t* psi_s = psi + n;
-  const uint32_t* c = consts + (size_t)lid * 8;
-  const uint32_t q = c[0];
-  const size_t off = ((size_t)blockIdx.y * L + l) * n;
-
-  for (int t = threadIdx.x; t < n; t += blockDim.x) a[t] = (uint32_t)x[off + t];
-  __syncthreads();
-  for (int s = 0; s < log_n; ++s) {
-    const int hs = log_n - 1 - s;  // half-size 2^hs, 2^s groups
-    for (int k = threadIdx.x; k < (n >> 1); k += blockDim.x) {
-      const int i = k >> hs;
-      const int j1 = (i << (hs + 1)) + (k & ((1 << hs) - 1));
-      const int j2 = j1 + (1 << hs);
-      ct_butterfly(a, j1, j2, psi[(1 << s) + i], psi_s[(1 << s) + i], q);
-    }
-    __syncthreads();
-  }
-  const uint32_t r = c[1], r_s = c[2];
-  for (int p = threadIdx.x; p < n; p += blockDim.x)
-    y[off + p] = (int64_t)mul_shoup(a[pos[p]], r, r_s, q);
-}
-
-__global__ void __launch_bounds__(kThreadsBig)
-ntt_inv_kernel(const int64_t* __restrict__ y, int64_t* __restrict__ x,
-               const uint32_t* __restrict__ tw,
-               const uint32_t* __restrict__ consts,
-               const int32_t* __restrict__ pos,
-               const int32_t* __restrict__ limbs, int L, int log_n) {
-  extern __shared__ uint32_t a[];
-  const int n = 1 << log_n;
-  const int l = blockIdx.x;
-  const int lid = limbs[l];
-  const uint32_t* psi_inv = tw + (size_t)lid * 4 * n + 2 * (size_t)n;
-  const uint32_t* psi_inv_s = psi_inv + n;
-  const uint32_t* c = consts + (size_t)lid * 8;
-  const uint32_t q = c[0];
-  const size_t off = ((size_t)blockIdx.y * L + l) * n;
-
-  for (int p = threadIdx.x; p < n; p += blockDim.x) a[pos[p]] = (uint32_t)y[off + p];
-  __syncthreads();
-  for (int s = 0; s < log_n; ++s) {
-    const int hg = log_n - 1 - s;  // 2^hg groups, half-size 2^s
-    for (int k = threadIdx.x; k < (n >> 1); k += blockDim.x) {
-      const int i = k >> s;
-      const int j1 = (i << (s + 1)) + (k & ((1 << s) - 1));
-      const int j2 = j1 + (1 << s);
-      gs_butterfly(a, j1, j2, psi_inv[(1 << hg) + i], psi_inv_s[(1 << hg) + i], q);
-    }
-    __syncthreads();
-  }
-  const uint32_t f = c[3], f_s = c[4];
-  for (int t = threadIdx.x; t < n; t += blockDim.x)
-    x[off + t] = (int64_t)mul_shoup(a[t], f, f_s, q);
-}
-
 // ---------------------------------------------------------------------------
 // Large-ring form: n = na·nb (element j = r·nb + c), 16 <= na <= 256,
 // 2 <= nb <= 256, n >= 256.
@@ -162,9 +68,8 @@ ntt_inv_kernel(const int64_t* __restrict__ y, int64_t* __restrict__ x,
 // size-na network whose twiddles depend on the row pair only); the stages
 // with h < log2(nb) stay inside a row (the row phase).  Forward runs the
 // column phase first (Cooley-Tukey, h descending), inverse the row phase
-// first (Gentleman-Sande, h ascending).  Tables, arithmetic and the order of
-// the butterflies inside a stage's dependencies are those of the one-block
-// kernels, and residues stay canonical, so the outputs are bit-identical.
+// first (Gentleman-Sande, h ascending).  Every kernel takes the same tables
+// and leaves canonical residues, so the forms are bit-identical.
 //
 // What bounds it on this card: bytes first, 32-bit integer instructions
 // close behind.  A transform must read 8 and write 8 bytes per int64 element;
@@ -362,20 +267,33 @@ struct Large {
   const uint32_t* c;           // the limb's constants
 };
 
+// The geometry alone: reads no memory, so a kernel can issue its first
+// polynomial's loads before it looks up the limb's tables.
+__device__ __forceinline__ Large geometry_of(int l, int log_n, int log_na, int log_n1) {
+  Large g;
+  g.log_n = log_n; g.log_na = log_na; g.log_nb = log_n - log_na; g.log_n1 = log_n1;
+  g.l = l;
+  return g;
+}
+
+__device__ __forceinline__ void tables_of(Large& g, const uint32_t* __restrict__ tw,
+                                          const uint32_t* __restrict__ consts,
+                                          const int32_t* __restrict__ limbs, bool inverse) {
+  const int lid = limbs[g.l];
+  g.w = tw + ((size_t)lid * 4 + (inverse ? 2 : 0)) * ((size_t)1 << g.log_n);
+  g.ws = g.w + ((size_t)1 << g.log_n);
+  g.c = consts + (size_t)lid * 8;
+  g.q = g.c[0];
+  g.lazy = g.q < (1u << 30);
+}
+
 __device__ __forceinline__ Large large_of(const uint32_t* __restrict__ tw,
                                           const uint32_t* __restrict__ consts,
                                           const int32_t* __restrict__ limbs, int l,
                                           int log_n, int log_na, int log_n1,
                                           bool inverse) {
-  Large g;
-  g.log_n = log_n; g.log_na = log_na; g.log_nb = log_n - log_na; g.log_n1 = log_n1;
-  g.l = l;
-  const int lid = limbs[l];
-  g.w = tw + ((size_t)lid * 4 + (inverse ? 2 : 0)) * ((size_t)1 << log_n);
-  g.ws = g.w + ((size_t)1 << log_n);
-  g.c = consts + (size_t)lid * 8;
-  g.q = g.c[0];
-  g.lazy = g.q < (1u << 30);
+  Large g = geometry_of(l, log_n, log_na, log_n1);
+  tables_of(g, tw, consts, limbs, inverse);
   return g;
 }
 
@@ -862,49 +780,238 @@ ntt_inv_cluster_kernel(const int64_t* __restrict__ y, int64_t* __restrict__ x,
   cluster_wait();
 }
 
-int launch(bool inverse, const void* in, void* out, const void* tw,
-           const void* consts, const void* pos, const void* limbs, int L,
-           int B, int log_n, void* stream) {
-  const int n = 1 << log_n;
-  const dim3 grid(L, B);
-  const size_t smem = (size_t)n * sizeof(uint32_t);
-  const bool big = smem > 48 * 1024;
-  const int cap = big ? kThreadsBig : kThreads;
-  const int threads = (n / 2) < cap ? (n / 2) : cap;
-  auto kernel = inverse ? ntt_inv_kernel : ntt_fwd_kernel;
-  if (big) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const int64_t*)in, (int64_t*)out, (const uint32_t*)tw,
-      (const uint32_t*)consts, (const int32_t*)pos, (const int32_t*)limbs, L,
-      log_n);
-  return (int)cudaGetLastError();
+// ---- one-block form: one CTA holds the whole vector, n <= 8192 -------------
+// The cluster kernels with a cluster of one: the column phase and the row
+// phase run back to back on the whole vector (one column tile of nb columns,
+// one row chunk of n words), the exchange between them through the CTA's own
+// shared memory and a __syncthreads.  n/16 threads, 16 elements a thread.
+//
+// The split per ring, na = 16 up to n = 4096 and 32 at n = 8192 (the caller
+// passes it: ops/ntt_cuda.py:one_block_split), puts the highest four stages
+// into the column phase's first round and leaves the row phase at most eight,
+// so that a round is either full or the only short one:
+//   n = 256   16 x 16    rounds of 4 + 4 stages            (1 exchange)
+//   n = 512   16 x 32    4 + 1 + 4                         (2)
+//   n = 1024  16 x 64    4 + 2 + 4                         (2)
+//   n = 2048  16 x 128   4 + 3 + 4                         (2)
+//   n = 4096  16 x 256   4 + 4 + 4                         (2)
+//   n = 8192  32 x 256   4 + 1 + 4 + 4                     (3)
+// A round that has no stage is left out with its exchange: the column
+// phase's second round unless na = 32 (at na = 16 both rounds hold the same
+// rows), the row phase's first round at n = 256.  The kernels are templates
+// on the count of rounds (2, 3 or 4), so a launch carries only the code its
+// ring runs.  A launch in the middle of a rotation finds the instruction
+// caches cold: with all rings in one kernel (113 KB of code) a 31-bit limb's
+// launch of (2, 1, 4096), whose strict butterflies came last in it, took 17-20
+// us after other kernels on an H100 against 7-8 in a loop of its own; with the
+// kernel of its ring alone it takes 7-8 in both (time_ntt.py --cold).
+//
+// What bounds it on this card: at (21, 22, 4096) the 30 MB of input and
+// output stay in the L2, and the n/2·log2 n butterflies on the integer pipes
+// (64 lanes per SM) take longer than the bytes; a launch of a few vectors is
+// a chain of latencies.  So the design is about few instructions and few
+// dependent trips:
+//  * Stages in register rounds, 2-3 barriers a transform instead of one per
+//    stage; every exchange free of bank conflicts from n = 512 up (padded by
+//    16 words in 256 between the phases, by one in 16 inside the row phase,
+//    unpadded between the column rounds, where a warp holds 32 adjacent
+//    columns).  The exchanges alternate between two buffers, so one barrier
+//    per exchange is enough: a thread that writes a buffer again has passed
+//    the barrier of the exchange in between, which every thread reaches only
+//    after its reads of that buffer.
+//  * Twiddles once per CTA.  A CTA owns one limb and loops over the
+//    polynomials b = blockIdx.y, blockIdx.y + gridDim.y, ...: the last
+//    round's 15 (w, w') pairs in registers, the other rounds' in shared
+//    memory (read as broadcasts).
+//  * Loads up front.  The first polynomial's 16 words are requested before
+//    the limb id is looked up, the thread's own twiddles before the shared
+//    ones are staged, the next polynomial's words before the current one's
+//    rounds; only the low word of each int64 residue is loaded.
+//  * No slot table: slot_of, as in the large-ring kernels.  With n1 = 128 (every
+//    n <= 8192) a warp stores a register as four runs of eight consecutive
+//    slots, whole 32-byte sectors.
+//  * Lazy butterflies for q < 2^30, strict ones for a 31-bit prime, by limb.
+
+struct OneBlock {
+  ColThread ct;
+  RowThread rt;
+  uint32_t* bufs;      // two exchange buffers of `padded` words each
+  int padded, flip;
+};
+
+// A CTA's twiddles, after tables_of.  Shared memory: [column tw][row tw]
+// [2 x (n + n/16) exchange words].
+__device__ __forceinline__ void one_block_setup(const Large& g, bool inverse, uint32_t* sm,
+                                                OneBlock& ob, uint2 (&tw_lo)[kSlots]) {
+  const int n = 1 << g.log_n;
+  ob.rt.mask_hi = stage_mask(4, 0, g.log_nb - 1);
+  ob.rt.mask_lo = stage_mask(0, 0, g.log_nb - 1);
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k)      // requested before the shared ones are waited for
+    tw_lo[k] = load_tw(g.w, g.ws, g.log_n, threadIdx.x * 16, 0, ob.rt.mask_lo, k);
+  uint32_t* p = sm + col_setup(g, g.log_nb, inverse, sm, ob.ct);
+  uint2* tws = reinterpret_cast<uint2*>(p);
+  stage_tw(tws, n >> 8, 0, 256, 4, ob.rt.mask_hi, g.w, g.ws, g.log_n);
+  ob.rt.tw_hi = tws + kSlots * (threadIdx.x >> 4);
+  ob.bufs = p + 2 * kSlots * (n >> 8);
+  ob.padded = n + (n >> 4);
+  ob.flip = 0;
 }
 
-// Launch with `smem` bytes of dynamic shared memory (opt-in above 48 KB) and,
-// where cluster > 0, as thread-block clusters of that many CTAs along x.
+__device__ __forceinline__ uint32_t* next_buf(OneBlock& ob) {
+  ob.flip ^= 1;
+  return ob.bufs + ob.flip * ob.padded;
+}
+
+// Word of network position (row r, column c) between the phases.
+__device__ __forceinline__ int between(const Large& g, int r, int c) {
+  return rows_pad((r << g.log_nb) + c);
+}
+
+// a: rows of the column phase's hi round on entry, words of the row phase's
+// lo round on exit.  ROUNDS: 2 at n = 256, 3 up to n = 4096, 4 at n = 8192.
+template <bool LAZY, int ROUNDS>
+__device__ __forceinline__ void fwd_one_block(uint32_t (&a)[16], OneBlock& ob, const Large& g,
+                                              const uint2 (&tw_lo)[kSlots]) {
+  if (ROUNDS == 4) fwd_col_phase<LAZY>(a, next_buf(ob), g, ob.ct, g.log_nb);
+  else ct_round<LAZY>(a, ob.ct.tw_hi, ob.ct.mask_hi, g.q);
+  uint32_t* buf = next_buf(ob);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) buf[between(g, col_row_lo(ob.ct, e), ob.ct.c)] = a[e];
+  __syncthreads();
+  if (ROUNDS >= 3) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) a[e] = buf[rows_pad(row_word_hi(e))];
+    fwd_row_phase<LAZY>(a, next_buf(ob), g, ob.rt, tw_lo);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) a[e] = buf[rows_pad(row_word_lo(e))];
+    ct_round<LAZY>(a, tw_lo, ob.rt.mask_lo, g.q);
+  }
+}
+
+// a: words of the row phase's lo round on entry, rows of the column phase's
+// hi round on exit.
+template <bool LAZY, int ROUNDS>
+__device__ __forceinline__ void inv_one_block(uint32_t (&a)[16], OneBlock& ob, const Large& g,
+                                              const uint2 (&tw_lo)[kSlots]) {
+  uint32_t* buf;
+  if (ROUNDS >= 3) {
+    inv_row_phase<LAZY>(a, next_buf(ob), g, ob.rt, tw_lo);
+    buf = next_buf(ob);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) buf[rows_pad(row_word_hi(e))] = a[e];
+  } else {
+    gs_round<LAZY>(a, tw_lo, ob.rt.mask_lo, g.q);
+    buf = next_buf(ob);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) buf[rows_pad(row_word_lo(e))] = a[e];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < 16; ++e) a[e] = buf[between(g, col_row_lo(ob.ct, e), ob.ct.c)];
+  if (ROUNDS == 4) inv_col_phase<LAZY>(a, next_buf(ob), g, ob.ct, g.log_nb);
+  else gs_round<LAZY>(a, ob.ct.tw_lo, ob.ct.mask_lo, g.q);
+}
+
+template <int ROUNDS>
+__global__ void __launch_bounds__(ROUNDS == 4 ? 512 : 256, ROUNDS == 4 ? 1 : 2)
+ntt_fwd_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ y,
+               const uint32_t* __restrict__ tw, const uint32_t* __restrict__ consts,
+               const int32_t* __restrict__ limbs, int L, int B, int log_n, int log_na,
+               int log_n1) {
+  extern __shared__ uint32_t sm[];
+  Large g = geometry_of(blockIdx.x, log_n, log_na, log_n1);
+  OneBlock ob;
+  ob.ct.xr = threadIdx.x >> g.log_nb;
+  ob.ct.c = threadIdx.x & ((1 << g.log_nb) - 1);
+  const size_t n = (size_t)1 << log_n;
+  const int G = gridDim.y;
+  uint32_t a[16], nxt[16];
+  int b = blockIdx.y;
+  if (b < B) load_coeffs(nxt, x, ((size_t)b * L + g.l) * n, ob.ct.c, g, ob.ct);
+  tables_of(g, tw, consts, limbs, false);
+  uint2 tw_lo[kSlots];
+  one_block_setup(g, false, sm, ob, tw_lo);
+  __syncthreads();
+  for (; b < B; b += G) {
+    copy16(a, nxt);
+    if (b + G < B) load_coeffs(nxt, x, ((size_t)(b + G) * L + g.l) * n, ob.ct.c, g, ob.ct);
+    if (g.lazy) fwd_one_block<true, ROUNDS>(a, ob, g, tw_lo);
+    else fwd_one_block<false, ROUNDS>(a, ob, g, tw_lo);
+    store_slots(a, y, ((size_t)b * L + g.l) * n, 0, g);
+  }
+}
+
+template <int ROUNDS>
+__global__ void __launch_bounds__(ROUNDS == 4 ? 512 : 256, ROUNDS == 4 ? 1 : 2)
+ntt_inv_kernel(const int64_t* __restrict__ y, int64_t* __restrict__ x,
+               const uint32_t* __restrict__ tw, const uint32_t* __restrict__ consts,
+               const int32_t* __restrict__ limbs, int L, int B, int log_n, int log_na,
+               int log_n1) {
+  extern __shared__ uint32_t sm[];
+  Large g = geometry_of(blockIdx.x, log_n, log_na, log_n1);
+  const size_t n = (size_t)1 << log_n;
+  const int G = gridDim.y;
+  uint32_t a[16], nxt[16];
+  int b = blockIdx.y;
+  if (b < B) load_slots(nxt, y, ((size_t)b * L + g.l) * n, 0, g);
+  tables_of(g, tw, consts, limbs, true);
+  OneBlock ob;
+  uint2 tw_lo[kSlots];
+  one_block_setup(g, true, sm, ob, tw_lo);
+  __syncthreads();
+  for (; b < B; b += G) {
+    copy16(a, nxt);
+    if (b + G < B) load_slots(nxt, y, ((size_t)(b + G) * L + g.l) * n, 0, g);
+    if (g.lazy) inv_one_block<true, ROUNDS>(a, ob, g, tw_lo);
+    else inv_one_block<false, ROUNDS>(a, ob, g, tw_lo);
+    store_coeffs(a, x, ((size_t)b * L + g.l) * n, ob.ct.c, g, ob.ct);
+  }
+}
+
+// Opt-in dynamic shared memory (above 48 KB) and the non-portable cluster
+// size are attributes of a kernel on a device: asked for once, not per launch.
+struct Grant {
+  size_t smem = 48 * 1024;
+  bool big_cluster = false;
+};
+
+cudaError_t grant(const void* kernel, size_t smem, int cluster) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, Grant> grants;
+  if (smem <= 48 * 1024 && cluster <= 8) return cudaSuccess;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  Grant& have = grants[std::make_pair(kernel, device)];
+  if (smem > have.smem) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    have.smem = smem;
+  }
+  if (cluster > 8 && !have.big_cluster) {  // above the portable size: the H100 takes 16
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    have.big_cluster = true;
+  }
+  return cudaSuccess;
+}
+
+// Launch with `smem` bytes of dynamic shared memory and, where cluster > 0,
+// as thread-block clusters of that many CTAs along x.
 template <typename Kernel, typename... Args>
 int launch_large(Kernel kernel, dim3 grid, int threads, size_t smem, int cluster,
                  void* stream, Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t granted = grant(reinterpret_cast<const void*>(kernel), smem, cluster);
+  if (granted != cudaSuccess) return (int)granted;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
-  if (cluster > 8) {   // above the portable size: the H100 takes 16 with this opt-in
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-  }
   if (cluster > 0) {
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = cluster;
@@ -974,28 +1081,51 @@ int launch_cluster(bool inverse, const void* in, void* out, const void* tw,
                       (const int32_t*)limbs, L, B, log_n, log_na, log_c, log_n1);
 }
 
+template <int ROUNDS>
+int launch_rounds(bool inverse, const void* in, void* out, const void* tw,
+                  const void* consts, const void* limbs, int L, int B, int G,
+                  int log_n, int log_na, int log_n1, void* stream) {
+  const int n = 1 << log_n;
+  const size_t smem = col_tw_bytes(log_na) + row_tw_bytes(n) + 2 * padded_bytes(n);
+  return launch_large(inverse ? ntt_inv_kernel<ROUNDS> : ntt_fwd_kernel<ROUNDS>, dim3(L, G),
+                      n / 16, smem, 0, stream, (const int64_t*)in, (int64_t*)out,
+                      (const uint32_t*)tw, (const uint32_t*)consts, (const int32_t*)limbs, L, B,
+                      log_n, log_na, log_n1);
+}
+
+int launch_one_block(bool inverse, const void* in, void* out, const void* tw,
+                     const void* consts, const void* limbs, int L, int B, int G,
+                     int log_n, int log_na, int log_n1, void* stream) {
+  // the split that the kernels' rounds assume (ops/ntt_cuda.py:one_block_split)
+  if (log_n < 8 || log_n > 13 || log_na != (log_n == 13 ? 5 : 4)) return (int)cudaErrorInvalidValue;
+  auto launch = log_n == 8 ? launch_rounds<2> : log_n == 13 ? launch_rounds<4> : launch_rounds<3>;
+  return launch(inverse, in, out, tw, consts, limbs, L, B, G, log_n, log_na, log_n1, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each entry point launches one kernel on `stream` and returns
 // cudaGetLastError() (0 = launched).  The caller checks shapes and the tile
-// geometry (ops/ntt_cuda.py).  One-block form: grid (L, B).
+// geometry (ops/ntt_cuda.py).  G is the number of polynomial groups (grid.y);
+// a CTA transforms the polynomials g, g + G, ... of its limb (and tile).
+// One-block form, 256 <= n <= 8192: grid (L, G), n/16 threads.
 int rfhe_ntt_fwd(const void* x, void* y, const void* tw, const void* consts,
-                 const void* pos, const void* limbs, int L, int B, int log_n,
-                 void* stream) {
-  return launch(false, x, y, tw, consts, pos, limbs, L, B, log_n, stream);
+                 const void* limbs, int L, int B, int G, int log_n, int log_na,
+                 int log_n1, void* stream) {
+  return launch_one_block(false, x, y, tw, consts, limbs, L, B, G, log_n, log_na, log_n1,
+                          stream);
 }
 
 int rfhe_ntt_inv(const void* y, void* x, const void* tw, const void* consts,
-                 const void* pos, const void* limbs, int L, int B, int log_n,
-                 void* stream) {
-  return launch(true, y, x, tw, consts, pos, limbs, L, B, log_n, stream);
+                 const void* limbs, int L, int B, int G, int log_n, int log_na,
+                 int log_n1, void* stream) {
+  return launch_one_block(true, y, x, tw, consts, limbs, L, B, G, log_n, log_na, log_n1,
+                          stream);
 }
 
-
-// Large-ring form.  G is the number of polynomial groups (grid.y); a CTA
-// transforms the polynomials g, g + G, ... of its (limb, tile).
+// Large-ring form.
 // Two passes, one entry point each.  Forward: col then row; inverse: row
 // then col.  Column passes: grid (L·nb/C, G); row passes: grid (L·n/chunk, G).
 int rfhe_ntt_fwd_col(const void* x, void* tmp, const void* tw, const void* consts,

@@ -3,9 +3,8 @@
 The forward kernels replace `rfhe_tpu/ops/ntt_fused.py:_fwd_kernel` and the
 inverse kernels `_inv_kernel`.  Each direction has two forms:
 
-  one-block   `rfhe_ntt_fwd` / `rfhe_ntt_inv`: one CTA holds the vector of a
-              (poly, limb) in shared memory, n <= 32768 (above 8192 with
-              opt-in dynamic shared memory);
+  one-block   `rfhe_ntt_fwd` / `rfhe_ntt_inv`: one CTA of n/16 threads holds
+              the vector of a (poly, limb), 256 <= n <= 8192;
   large-ring  n = na·nb with 16 <= na <= 256, 2 <= nb <= 256, n >= 256, as
               one trip through device memory, `rfhe_ntt_fwd_cluster` /
               `rfhe_ntt_inv_cluster` (a thread-block cluster of nb/16 CTAs
@@ -13,15 +12,19 @@ inverse kernels `_inv_kernel`.  Each direction has two forms:
               through a uint32 intermediate, `rfhe_ntt_fwd_col` +
               `rfhe_ntt_fwd_row` (inverse: `_inv_row` + `_inv_col`).
 
-The large-ring form is bounded by bytes (16 per element at the least).  Its
-kernels keep 16 elements of a thread in registers for four butterfly stages
-at a time, loop over the polynomials of a (limb, tile) so that twiddles are
-fetched once and the next polynomial's loads are in flight while the current
-one computes, and write whole slot rows; the cluster kernels drop the
-intermediate's 8 bytes per element and one launch.  The host side of that
-design is here: `large_geometry` and `cluster_geometry` (tiles and chunks),
-`poly_groups` (how the batch is split over grid.y), `default_split` and
-`large_form` (which form a ring and a launch take).
+All of them keep 16 elements of a thread in registers for four butterfly
+stages at a time, loop over the polynomials of a limb (and tile) so that
+twiddles are fetched once and the next polynomial's loads are in flight while
+the current one computes, compute the slot of a network position in closed
+form and take the lazy butterflies for q < 2^30.  The one-block kernels run
+both phases of the split n = na·nb in one CTA (`one_block_split`); the
+large-ring form is bounded by bytes (16 per element at the least), and its
+cluster kernels drop the intermediate's 8 bytes per element and one launch.
+The host side of that design is here: `one_block_split`, `large_geometry` and
+`cluster_geometry` (splits, tiles and chunks), `poly_groups` (how the batch
+is split over grid.y), `default_split` and `large_form` (which form a ring
+and a launch take), `launch_plan` (the launches of a transform, kept per
+shape).
 
 `split` selects the form: 0 the one-block form, an int log2(na) the
 large-ring form at that split with the kernels `large_form` picks for the
@@ -57,10 +60,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rfhe_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_N = 65536             # the largest ring the reference package runs
-MAX_ONE_BLOCK_N = 32768   # 128 KB of the 227 KB a block may use on sm_90
-MAX_ONE_BLOCK_DEFAULT_N = 8192    # the largest ring that takes one block by itself
-MAX_ONE_BLOCK_BATCH = 65535       # grid.y of the one-block kernels
-MIN_LARGE_N = 256         # a row-phase chunk is a multiple of 256 words
+MAX_ONE_BLOCK_N = 8192    # 512 threads of 16 elements: the one-block form's largest ring
+MIN_N = 256               # a row-phase chunk is a multiple of 256 words, in every form
 LOG_COLS = 5              # a column tile is at most 32 columns wide,
 LOG_COLS_CLUSTER = 4      # 16 in the cluster kernels (two CTAs of 256 threads per SM)
 LOG_CHUNK = 12            # a row pass works on chunks of at most 4096 words
@@ -81,10 +82,23 @@ def large_split(n: int) -> int:
 
 def default_split(n: int) -> int:
     """log2(na) of the form that ring n takes by itself; 0 is the one-block
-    form.  Both forms take n = 256 ... 32768.  On an H100 the large-ring form
-    is the faster from n = 16384 up, at the keyswitch shape (21, 22, n) and at
-    the mod-down's small shapes alike (chip_smoke.py times both)."""
-    return 0 if n <= MAX_ONE_BLOCK_DEFAULT_N else large_split(n)
+    form, which takes n = 256 ... 8192 and is the form of all of them; the
+    large-ring form takes every n from 256 up (chip_smoke.py times both at
+    n = 4096)."""
+    return 0 if n <= MAX_ONE_BLOCK_N else large_split(n)
+
+
+def one_block_split(log_n: int) -> int:
+    """log2(na) of the split n = na·nb inside the one-block kernels: na = 16
+    up to n = 4096 and 32 at n = 8192.  The column phase's first round then
+    runs the four highest stages, and the row phase (nb <= 256) at most eight:
+    rounds of 4 + 4 stages at n = 256, 4 + k + 4 at n = 256·2^k up to 4096
+    (three full rounds), 4 + 1 + 4 + 4 at n = 8192; only the k-stage round is
+    short, and an empty round is skipped with its exchange."""
+    if not MIN_N.bit_length() - 1 <= log_n <= MAX_ONE_BLOCK_N.bit_length() - 1:
+        raise ValueError(f"the one-block form takes {MIN_N} <= n <= {MAX_ONE_BLOCK_N}, "
+                         f"got n=2^{log_n}")
+    return max(4, log_n - 8)
 
 
 def large_form(vectors: int, n: int) -> str:
@@ -125,9 +139,9 @@ def large_geometry(log_n: int, log_na: int) -> tuple:
     elements for at most four stages and a phase is two such rounds, so na
     lies in [16, 256] and nb in [2, 256]."""
     log_nb = log_n - log_na
-    if not (log_n >= MIN_LARGE_N.bit_length() - 1 and 4 <= log_na <= 8 and 1 <= log_nb <= 8):
+    if not (log_n >= MIN_N.bit_length() - 1 and 4 <= log_na <= 8 and 1 <= log_nb <= 8):
         raise ValueError(f"split 2^{log_na} x 2^{log_nb} of n=2^{log_n}: the large-ring "
-                         f"form takes n >= {MIN_LARGE_N}, 16 <= na <= 256, 2 <= nb <= 256")
+                         f"form takes n >= {MIN_N}, 16 <= na <= 256, 2 <= nb <= 256")
     return min(log_nb, LOG_COLS), min(log_n, LOG_CHUNK)
 
 
@@ -139,15 +153,15 @@ def cluster_geometry(log_n: int, log_na: int) -> tuple:
 
 
 def resident_ctas(sms: int, threads: int) -> int:
-    """CTAs of `threads` threads that the card holds at once: the large-ring
-    kernels take up to 128 registers a thread, so an SM holds 512 threads of
-    them (at most 8 CTAs)."""
+    """CTAs of `threads` threads that the card holds at once: the kernels
+    take up to 128 registers a thread, so an SM holds 512 threads of them (at
+    most 8 CTAs)."""
     return sms * min(8, max(1, 512 // threads))
 
 
 def poly_groups(batch: int, ctas: int, slots: int) -> int:
-    """grid.y of a large-ring launch: the batch is split into this many groups,
-    and a CTA loops over the polynomials g, g + G, ... of its (limb, tile).
+    """grid.y of a launch: the batch is split into this many groups, and a
+    CTA loops over the polynomials g, g + G, ... of its limb (and tile).
     `ctas` is the grid's x and `slots` the CTAs the card holds at once.  The
     launch runs in ceil(ctas·G/slots) waves of ceil(batch/G) loop trips each,
     and a CTA pays about one trip's time to fetch its twiddles, so G is the
@@ -179,6 +193,20 @@ def large_passes(kind: str, inverse: bool, L: int, batch: int, log_n: int, log_n
     row = (f"rfhe_ntt_{d}_row", (groups(1 << (log_n - log_chunk), 1 << log_chunk),
                                  log_n, log_na, log_chunk, log_n1))
     return [row, col] if inverse else [col, row]
+
+
+@lru_cache(maxsize=None)
+def launch_plan(kind: str, inverse: bool, L: int, batch: int, log_n: int, log_na: int,
+                log_n1: int, sms: int) -> tuple:
+    """The `__global__` launches of one transform of (batch, L, n) by the
+    kernels `kind`, as `large_passes` lists them; the one-block form is one
+    launch, (G, log_n, log_na, log_n1).  Kept per shape: a rotation repeats
+    the same few."""
+    if kind != "one_block":
+        return tuple(large_passes(kind, inverse, L, batch, log_n, log_na, log_n1, sms))
+    groups = poly_groups(batch, L, resident_ctas(sms, (1 << log_n) // 16))
+    return ((f"rfhe_ntt_{'inv' if inverse else 'fwd'}",
+             (groups, log_n, one_block_split(log_n), log_n1)),)
 
 
 @lru_cache(maxsize=None)
@@ -250,8 +278,8 @@ class NttKernels:
             lib = ctypes.CDLL(str(library_path()))
             ptr, num = ctypes.c_void_p, ctypes.c_int
             signatures = {
-                "rfhe_ntt_fwd": [ptr] * 6 + [num] * 3 + [ptr],
-                "rfhe_ntt_inv": [ptr] * 6 + [num] * 3 + [ptr],
+                "rfhe_ntt_fwd": [ptr] * 5 + [num] * 6 + [ptr],
+                "rfhe_ntt_inv": [ptr] * 5 + [num] * 6 + [ptr],
                 "rfhe_ntt_fwd_col": [ptr] * 5 + [num] * 6 + [ptr],
                 "rfhe_ntt_inv_col": [ptr] * 5 + [num] * 6 + [ptr],
                 "rfhe_ntt_fwd_row": [ptr] * 5 + [num] * 7 + [ptr],
@@ -272,16 +300,12 @@ class NttKernels:
         check_residues(x, plan.L, plan.n, plan.device)
         if x.device.type != "cuda":
             raise ValueError(f"the CUDA NTT takes CUDA tensors, got {x.device}")
-        if plan.n > MAX_N:
-            raise ValueError(f"n={plan.n} exceeds the largest supported ring {MAX_N}")
+        if not MIN_N <= plan.n <= MAX_N:
+            raise ValueError(f"n={plan.n}: the kernels take {MIN_N} <= n <= {MAX_N}")
         B = x.numel() // (plan.L * plan.n)
         kind, log_na = resolve_split(plan.n, split, B * plan.L)
         if kind == "one_block":
-            if plan.n > MAX_ONE_BLOCK_N:
-                raise ValueError(f"n={plan.n} does not fit one block's shared memory")
-            if B > MAX_ONE_BLOCK_BATCH:
-                raise ValueError(f"batch {B} exceeds the one-block grid limit "
-                                 f"{MAX_ONE_BLOCK_BATCH}")
+            one_block_split(plan.log_n)                   # raises above n = 8192
         else:
             large_geometry(plan.log_n, log_na)            # raises on a split it does not take
         out = torch.empty_like(x)
@@ -289,27 +313,19 @@ class NttKernels:
             return out
         t, lib = plan.tables, self.lib()
         form = ("inv" if inverse else "fwd") + ("" if kind == "one_block" else "_large")
-        tables = (t.kernel_tw.data_ptr(), t.kernel_consts.data_ptr())
-        limbs = plan.limb_ids32.data_ptr()
+        passes = launch_plan(kind, inverse, plan.L, B, plan.log_n, log_na,
+                             plan.n1.bit_length() - 1, sm_count(x.device.index))
+        # two passes go through a uint32 intermediate
+        scratch = [torch.empty(x.numel(), dtype=torch.int32, device=x.device)
+                   for _ in passes[1:]]
+        ptrs = [x.data_ptr(), *(s.data_ptr() for s in scratch), out.data_ptr()]
+        tables = (t.kernel_tw.data_ptr(), t.kernel_consts.data_ptr(), plan.limb_ids32.data_ptr())
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            if kind == "one_block":
-                fn = lib.rfhe_ntt_inv if inverse else lib.rfhe_ntt_fwd
-                calls = [(fn, (x.data_ptr(), out.data_ptr(), *tables, t.kernel_pos.data_ptr(),
-                               limbs, plan.L, B, plan.log_n, stream))]
-            else:
-                passes = large_passes(kind, inverse, plan.L, B, plan.log_n, log_na,
-                                      plan.n1.bit_length() - 1, sm_count(x.device.index))
-                # two passes go through a uint32 intermediate
-                scratch = [torch.empty(x.numel(), dtype=torch.int32, device=x.device)
-                           for _ in passes[1:]]
-                ptrs = [x.data_ptr(), *(s.data_ptr() for s in scratch), out.data_ptr()]
-                calls = [(getattr(lib, name), (src, dst, *tables, limbs, plan.L, B, *ints, stream))
-                         for (name, ints), src, dst in zip(passes, ptrs, ptrs[1:])]
-            for fn, args in calls:
-                rc = fn(*args)
+            for (name, ints), src, dst in zip(passes, ptrs, ptrs[1:]):
+                rc = getattr(lib, name)(src, dst, *tables, plan.L, B, *ints, stream)
                 if rc != 0:
-                    raise RuntimeError(f"{fn.__name__} launch failed: cudaError {rc} "
+                    raise RuntimeError(f"{name} launch failed: cudaError {rc} "
                                        f"(n={plan.n}, L={plan.L}, B={B}, split={split})")
                 self.passes[form] += 1
         self.launches[form] += 1

@@ -7,7 +7,9 @@ grouped digits), warms one rotation, then reports per rotation
   wall      host clock around `reps` rotations ending in a synchronize
   enqueue   host clock until the last rotation's launches are queued
   device    the sum of the kernels' own device times (torch.profiler)
-  launches  kernels launched, and the device time by kernel name
+  launches  kernels launched, and the device time by kernel name; the NTT
+            kernels also one by one, in the order a rotation launches them
+  SM clock  nvidia-smi's readings while a second of rotations runs
 
 Run on a machine with one NVIDIA GPU and nvcc, from the root of a checkout:
 
@@ -26,7 +28,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .device import card
+from .device import card, sampled_sm_clocks
 from .fhe import CkksContext, CkksParams
 
 CHAIN = dict(levels=20, q0_bits=30, scale_bits=28)      # 21 ciphertext primes
@@ -56,7 +58,9 @@ def group_of(kernel_name: str) -> str:
 def profile_rotation(n: int, dnum: Optional[int], reps: int,
                      seed: int = 7) -> Tuple[Dict[str, float], Dict[str, Tuple[float, int]]]:
     """(totals, rows): totals holds wall_us, enqueue_us, device_us and launches
-    per rotation; rows maps a report row to (device µs, launches) per rotation."""
+    per rotation, the least and greatest SM clock read while rotating and the
+    NTT kernels' (name, device µs) in launch order; rows maps a report row to
+    (device µs, launches) per rotation."""
     if not torch.cuda.is_available():
         raise RuntimeError("profile_rotation needs a CUDA device")
     ctx = CkksContext(CkksParams.make(n=n, **CHAIN), seed=seed, dnum=dnum, device="cuda")
@@ -77,17 +81,33 @@ def profile_rotation(n: int, dnum: Optional[int], reps: int,
             ctx.rotate(ct, 1)
         torch.cuda.synchronize()
     rows: Dict[str, list] = defaultdict(lambda: [0.0, 0])
+    ntt = []
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             row = rows[group_of(ev.name)]
             row[0] += ev.device_time_total
             row[1] += 1
+            if "ntt_" in ev.name:
+                ntt.append((ev.time_range.start, ev.name, ev.device_time_total))
     if not rows:
         raise RuntimeError("the profiler recorded no device kernel")
     per = {k: (us / reps, count / reps) for k, (us, count) in rows.items()}
+    # every rotation launches the same NTT kernels in the same order: the mean
+    # of each position over the rotations
+    ntt.sort()
+    k = len(ntt) // reps
+    in_order = [(ntt[i][1].split("::")[-1].split("(")[0], sum(t for _, _, t in ntt[i::k]) / reps)
+                for i in range(k)] if k and len(ntt) == k * reps else []
+    with sampled_sm_clocks() as clocks:
+        until = time.perf_counter() + 1.0
+        while time.perf_counter() < until:
+            ctx.rotate(ct, 1)
+        torch.cuda.synchronize()
     totals = {"wall_us": (t2 - t0) / reps * 1e6, "enqueue_us": (t1 - t0) / reps * 1e6,
               "device_us": sum(us for us, _ in per.values()),
-              "launches": sum(count for _, count in per.values())}
+              "launches": sum(count for _, count in per.values()),
+              "sm_mhz": (min(clocks), max(clocks)) if clocks else None,
+              "ntt_in_order": in_order}
     return totals, per
 
 
@@ -103,7 +123,10 @@ def main() -> None:
     print(f"[profile] per rotation: wall {totals['wall_us']:.1f} us, host enqueue "
           f"{totals['enqueue_us']:.1f} us, device busy {totals['device_us']:.1f} us "
           f"({100 * totals['device_us'] / totals['wall_us']:.1f}% of wall), "
-          f"{totals['launches']:.1f} kernel launches")
+          f"{totals['launches']:.1f} kernel launches; SM clock while rotating "
+          f"{totals['sm_mhz']} MHz (least, greatest)")
+    print("[profile] NTT kernels in launch order: " +
+          ", ".join(f"{name} {us:.2f} us" for name, us in totals["ntt_in_order"]))
     for name, (us, count) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
         print(f"[profile]   {name:60s} {us:9.1f} us  {100 * us / totals['device_us']:5.1f}%  "
               f"{count:6.1f} launches")

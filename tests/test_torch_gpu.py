@@ -45,8 +45,11 @@ def _check(plan, x, split=None):
     return y
 
 
-@pytest.mark.parametrize("n, bits", [(256, 30), (2048, 31), (4096, 30), (8192, 31)])
+@pytest.mark.parametrize("n, bits", [(256, 30), (256, 31), (512, 30), (512, 31), (1024, 30),
+                                     (1024, 31), (2048, 30), (2048, 31), (4096, 30), (4096, 31),
+                                     (8192, 30), (8192, 31)])
 def test_kernels_match_plain(cuda, n, bits):
+    """The one-block kernels at every ring they take, lazy and strict limbs."""
     plan = NttPlan.make(n, find_ntt_primes(n, bits, 3), cuda).take([2, 0])
     x = _rand(plan, 3, n)
     before = (ntt_cuda.KERNELS.fwd_launches, ntt_cuda.KERNELS.inv_launches)
@@ -72,11 +75,19 @@ def test_large_ring_kernels_match_plain(cuda, n, bits):
     assert torch.equal(plan.fwd(x), y) and torch.equal(plan.inv(y), x)
 
 
-@pytest.mark.parametrize("n", [16384, 32768])
-def test_one_block_form_with_opt_in_shared_memory(cuda, n):
-    """64 KB and 128 KB of dynamic shared memory in the one-block kernels."""
-    plan = NttPlan.make(n, find_ntt_primes(n, 31, 2), cuda)
-    _check(plan, _rand(plan, 2, n), split=0)
+@pytest.mark.parametrize("batch", [1, 5, 23, 70000])
+def test_one_block_polynomial_groups_on_the_card(cuda, batch):
+    """The one-block kernels on batches of one, of groups of uneven length
+    (23 polynomials of 22 limbs at n = 4096: 11 groups of three trips and
+    two) and beyond grid.y's 65535, lazy and strict limbs together; n = 8192
+    takes its shared memory as an opt-in."""
+    n = 256 if batch > 64 else 4096
+    many = 1 if batch > 64 else 7
+    plan = NttPlan.make(n, find_ntt_primes(n, 30, 2 * many) + find_ntt_primes(n, 31, many + 1), cuda)
+    _check(plan, _rand(plan, batch, batch), split=0)
+    if batch <= 64:
+        big = NttPlan.make(8192, find_ntt_primes(8192, 30, 2) + find_ntt_primes(8192, 31, 1), cuda)
+        _check(big, _rand(big, batch, batch), split=0)
 
 
 @pytest.mark.parametrize("kind", [ntt_cuda.TWO_PASS, ntt_cuda.CLUSTER])
@@ -118,7 +129,13 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     plan = NttPlan.make(65536, find_ntt_primes(65536, 30, 1), cuda)
     x = torch.zeros((1, 65536), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
-        ntt_cuda.fwd(x, plan, 0)                 # 256 KB does not fit one block
+        ntt_cuda.fwd(x, plan, 0)                 # one block takes n <= 8192
+    mid = NttPlan.make(16384, find_ntt_primes(16384, 30, 1), cuda)
+    with pytest.raises(ValueError):
+        ntt_cuda.fwd(x[:, :16384].contiguous(), mid, 0)
+    tiny = NttPlan.make(128, find_ntt_primes(128, 30, 1), cuda)
+    with pytest.raises(ValueError):
+        ntt_cuda.fwd(x[:, :128].contiguous(), tiny)      # no kernel takes n < 256
     with pytest.raises(ValueError):
         ntt_cuda.fwd(x, plan, 12)                # nb = 16 but na = 4096 rows
     with pytest.raises(ValueError):

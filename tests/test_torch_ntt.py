@@ -1,10 +1,10 @@
 """The port's NTT plan and plain versions against rfhe_tpu's MxuNttPlan (the
 XLA path on the CPU) and against the Pallas kernel in interpret mode, bit for
 bit; the closed-form definitions of the two kernels on a tiny case; and numpy
-emulations of the CUDA kernels' arithmetic on the tables they are given, for
-the one-block form and, thread by thread, for the large-ring kernels (register
-rounds and their twiddle slots, exchange layouts, polynomial groups, the
-closed-form slot store, the cluster's exchange).  Tolerance 0 throughout."""
+emulations of the CUDA kernels on the tables they are given, thread by thread,
+for the one-block and the large-ring kernels (register rounds and their
+twiddle slots, exchange layouts and their bank conflicts, polynomial groups,
+the closed-form slot store, the cluster's exchange).  Tolerance 0 throughout."""
 import os
 
 import numpy as np
@@ -23,8 +23,9 @@ from rfhe_tpu_torch.ops.ntt import (  # noqa: E402
 )
 from rfhe_tpu_torch.ops.ntt import _bit_reverse, slot_of_position  # noqa: E402
 from rfhe_tpu_torch.ops.ntt_cuda import (  # noqa: E402
-    CLUSTER, TWO_PASS, cluster_geometry, default_split, large_geometry, large_passes,
-    large_split, poly_groups, resident_ctas, resolve_split,
+    CLUSTER, MAX_ONE_BLOCK_N, TWO_PASS, cluster_geometry, default_split, large_geometry,
+    large_passes, large_split, launch_plan, one_block_split, poly_groups, resident_ctas,
+    resolve_split,
 )
 
 torch.set_num_threads(1)
@@ -140,62 +141,13 @@ def _shoup(v, w, ws, q):
     return np.where(r >= q, r - q, r)
 
 
-def _ct(a, j1, j2, w, ws, q):
-    """Cooley-Tukey butterflies in place on the uint32-valued vector a."""
-    u, v = a[j1].copy(), _shoup(a[j2], w, ws, q)
-    a[j1] = np.where(u + v >= q, u + v - q, u + v)
-    a[j2] = np.where(u >= v, u - v, u + q - v)
-
-
-def _gs(a, j1, j2, w, ws, q):
-    """Gentleman-Sande butterflies in place."""
-    u, v = a[j1].copy(), a[j2].copy()
-    a[j1] = np.where(u + v >= q, u + v - q, u + v)
-    a[j2] = _shoup(np.where(u >= v, u - v, u + q - v), w, ws, q)
-
-
 def _packed(plan):
     t = plan.tables
     return (t.kernel_tw.numpy().view(np.uint32).astype(np.uint64),
             t.kernel_consts.numpy().view(np.uint32).astype(np.uint64))
 
 
-def _emulate_kernel(x, plan, inverse):
-    """The one-block CUDA kernels' arithmetic in numpy: uint32 Shoup
-    butterflies on the packed tables kernel_tw/kernel_consts/kernel_pos,
-    indexed by limb id."""
-    tw, cs = _packed(plan)
-    pos = plan.tables.kernel_pos.numpy()
-    n, log_n = plan.n, plan.log_n
-    k = np.arange(n // 2)
-    out = np.empty_like(x)
-    for b in range(x.shape[0]):
-        for l, lid in enumerate(plan.limb_ids32.numpy()):
-            q = cs[lid, 0]
-            a = np.empty(n, dtype=np.uint64)
-            if inverse:
-                a[pos] = x[b, l].astype(np.uint64)
-            else:
-                a[:] = x[b, l].astype(np.uint64)
-            for s in range(log_n):
-                if inverse:
-                    i, half, widx = k >> s, 1 << s, (1 << (log_n - 1 - s)) + (k >> s)
-                else:
-                    hs = log_n - 1 - s
-                    i, half, widx = k >> hs, 1 << hs, (1 << s) + (k >> hs)
-                j1 = i * 2 * half + (k & (half - 1))
-                if inverse:
-                    _gs(a, j1, j1 + half, tw[lid, 2, widx], tw[lid, 3, widx], q)
-                else:
-                    _ct(a, j1, j1 + half, tw[lid, 0, widx], tw[lid, 1, widx], q)
-            if inverse:
-                out[b, l] = _shoup(a, cs[lid, 3], cs[lid, 4], q)
-            else:
-                out[b, l] = _shoup(a[pos], cs[lid, 1], cs[lid, 2], q)
-    return out
-
-
-# ---- the large-ring kernels, thread by thread --------------------------------
+# ---- the kernels, thread by thread --------------------------------------------
 # Mirrors of the device functions of csrc/ntt.cu, vectorised over the threads
 # of a CTA: `a` is (threads, 16), the registers of every thread.
 
@@ -263,19 +215,38 @@ _E = np.arange(16)
 _SENTINEL = np.uint64(1 << 40)
 
 
+def _bank_conflict(idx):
+    """The most threads of one warp that one access (register e of every
+    thread, idx[:, e]) sends to different words of one of the 32 banks.  The
+    pushes of the cluster emulation, which are sorted by receiving CTA and not
+    by thread, are not counted."""
+    worst = 1
+    if idx.ndim != 2:
+        return worst
+    for warp in range(0, idx.shape[0], 32):
+        for e in range(idx.shape[1]):
+            words = np.unique(idx[warp:warp + 32, e])
+            worst = max(worst, int(np.bincount(words % 32).max()))
+    return worst
+
+
 class _Exchange:
-    """A shared-memory buffer: every word read must have been written."""
+    """A shared-memory buffer: every word read must have been written.
+    `conflict` is the worst bank conflict of the accesses so far."""
 
     def __init__(self, words):
         self.words = np.full(words, _SENTINEL)
+        self.conflict = 1
 
     def write(self, idx, vals):
         assert len(np.unique(idx)) == idx.size            # no two threads on one word
         self.words[idx] = vals
+        self.conflict = max(self.conflict, _bank_conflict(idx))
 
     def read(self, idx):
         out = self.words[idx]
         assert (out != _SENTINEL).all()
+        self.conflict = max(self.conflict, _bank_conflict(idx))
         return out
 
 
@@ -309,8 +280,8 @@ class _Col:
     def words(self):
         return (1 << (self.S + self.log_c)) + ((1 << self.S) if self.log_c < 5 else 0)
 
-    def phase(self, a):
-        buf = _Exchange(self.words())
+    def phase(self, a, buf=None):
+        buf = buf or _Exchange(self.words())
         if self.inverse:
             _round(a, self.tw_lo, self.mask_lo, self.q, True)
             buf.write(self._at(self.row_lo), a)
@@ -339,9 +310,9 @@ class _Row:
         self.word_hi = ((x >> 4) << 8)[:, None] + (_E << 4)[None, :] + (x & 15)[:, None]
         self.word_lo = x[:, None] * 16 + _E[None, :]
 
-    def phase(self, a):
+    def phase(self, a, xb=None):
         pad = lambda i: i + (i >> 4)
-        xb = _Exchange(self.chunk + (self.chunk >> 4))
+        xb = xb or _Exchange(self.chunk + (self.chunk >> 4))
         if self.inverse:
             _round(a, self.tw_lo, self.mask_lo, self.q, True)
             xb.write(pad(self.word_lo), a)
@@ -451,16 +422,167 @@ def _emulate_large(x, plan, inverse, log_na, kind=TWO_PASS, slots=4):
     return out
 
 
+def _emulate_one_block(x, plan, inverse, sms=1, exchanges=None):
+    """The one-block kernels, CTA by CTA (one per limb and polynomial group)
+    with the wrapper's geometry: the column phase and the row phase of the
+    split `one_block_split` on the whole vector, an empty round skipped with
+    its exchange.  `exchanges` collects every shared-memory buffer used."""
+    log_n, n, B = plan.log_n, plan.n, x.shape[0]
+    log_na = one_block_split(log_n)
+    log_nb, log_n1 = log_n - log_na, plan.n1.bit_length() - 1
+    (_, (G, *geometry)), = launch_plan("one_block", inverse, plan.L, B, log_n, 0, log_n1, sms)
+    assert geometry == [log_n, log_na, log_n1]
+    assert G == poly_groups(B, plan.L, resident_ctas(sms, n // 16))
+    _, cs = _packed(plan)
+    rows_pad = lambda i: i + ((i >> 8) << 4)
+    out = np.full(x.shape, -1, dtype=np.int64)
+
+    def buffer():
+        """One of the two exchange buffers of the kernel, n + n/16 words."""
+        buf = _Exchange(n + (n >> 4))
+        if exchanges is not None:
+            exchanges.append(buf)
+        return buf
+
+    for l, lid in enumerate(plan.limb_ids32.numpy()):
+        q = cs[lid, 0]
+        scale = lambda v, i: _shoup(v, cs[lid, i], cs[lid, i + 1], q)
+        ct = _Col(plan, lid, log_na, log_nb, inverse)          # one tile: every column
+        rt = _Row(plan, lid, log_na, 0, n, inverse)            # one chunk: every word
+        assert len(ct.xr) == len(rt.word_lo) == n // 16
+        between = lambda rows: rows_pad((rows << log_nb) + ct.c[:, None])
+        natural = lambda rows: (rows << log_nb) + ct.c[:, None]
+        slots_lo = _slot_of(rt.word_lo, log_n, log_n1)
+        for b in (b for g in range(G) for b in range(g, B, G)):
+            if inverse:
+                a = x[b, l][slots_lo].astype(np.uint64)
+                if rt.mask_hi:
+                    rt.phase(a, buffer())
+                    held = rt.word_hi
+                else:
+                    _round(a, rt.tw_lo, rt.mask_lo, q, True)
+                    held = rt.word_lo
+                buf = buffer()
+                buf.write(rows_pad(held), a)
+                a = buf.read(between(ct.row_lo))
+                if ct.mask_hi:
+                    ct.phase(a, buffer())
+                else:
+                    _round(a, ct.tw_lo, ct.mask_lo, q, True)
+                out[b, l][natural(ct.row_hi)] = scale(a, 3)
+            else:
+                a = x[b, l][natural(ct.row_hi)].astype(np.uint64)
+                if ct.mask_lo:
+                    ct.phase(a, buffer())
+                else:
+                    _round(a, ct.tw_hi, ct.mask_hi, q, False)
+                buf = buffer()
+                buf.write(between(ct.row_lo), a)
+                if rt.mask_hi:
+                    a = buf.read(rows_pad(rt.word_hi))
+                    rt.phase(a, buffer())
+                else:
+                    a = buf.read(rows_pad(rt.word_lo))
+                    _round(a, rt.tw_lo, rt.mask_lo, q, False)
+                out[b, l][slots_lo] = scale(a, 1)
+    assert out.min() >= 0                                  # every output word written
+    return out
+
+
+def _hold_one_block(n, bits, batch, take=(2, 0)):
+    """The emulated one-block kernels on a non-contiguous take against the
+    plain versions and against rfhe_tpu's MxuNttPlan; returns the exchange
+    buffers the emulation went through."""
+    ref, plan = _plans(n, bits)
+    sub, sub_ref = plan.take(list(take)), ref.take(np.array(take))
+    x = _residues(sub.primes, (batch, sub.L, n), seed=n + bits).astype(np.int64)
+    exchanges = []
+    y = ntt_fwd_reference(_t(x), sub).numpy()
+    np.testing.assert_array_equal(_emulate_one_block(x, sub, False, exchanges=exchanges), y)
+    np.testing.assert_array_equal(y, np.asarray(sub_ref.fwd(jnp.asarray(x.astype(np.uint32)))))
+    back = _emulate_one_block(y, sub, True, exchanges=exchanges)
+    np.testing.assert_array_equal(back, ntt_inv_reference(_t(y), sub).numpy())
+    np.testing.assert_array_equal(back, x)
+    return exchanges
+
+
 @pytest.mark.parametrize("bits", [30, 31])
-def test_cuda_kernel_arithmetic_emulated(bits):
-    """The kernels' table packing, limb-id indexing and Shoup arithmetic,
-    emulated on a non-contiguous take, equal the plain versions."""
-    _, plan = _plans(256, bits)
-    sub = plan.take([2, 0])
-    x = _residues(sub.primes, (2, sub.L, 256), seed=bits)
-    y = sub.fwd(_t(x)).numpy()
-    np.testing.assert_array_equal(_emulate_kernel(x.astype(np.int64), sub, False), y)
-    np.testing.assert_array_equal(_emulate_kernel(y, sub, True), x.astype(np.int64))
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096, 8192])
+def test_one_block_kernels_emulated(n, bits):
+    """The one-block kernels at every ring they take, lazy (30-bit) and strict
+    (31-bit) butterflies: the split per ring, the rounds that are skipped,
+    the exchanges between the phases, the closed-form slots.  From n = 512 up
+    no exchange has a bank conflict; each polynomial goes through 1 (n = 256),
+    2 or 3 (n = 8192) exchanges in each direction."""
+    exchanges = _hold_one_block(n, bits, batch=2)
+    per_transform = {256: 1, 8192: 3}.get(n, 2)
+    assert len(exchanges) == 2 * 2 * 2 * per_transform        # directions x limbs x batch
+    if n >= 512:
+        assert max(buf.conflict for buf in exchanges) == 1
+
+
+@pytest.mark.parametrize("batch", [1, 11])
+def test_one_block_polynomial_groups_emulated(batch):
+    """A batch that the polynomial groups do not divide (11 over the four
+    groups that eight resident CTAs leave two limbs: three trips and two) and
+    a batch of one."""
+    assert poly_groups(batch, 2, resident_ctas(1, 16)) == min(batch, 4)
+    _hold_one_block(256, 30, batch)
+
+
+@pytest.mark.skipif(not ntt_fused._INTERPRET, reason="interpret mode disabled by env")
+def test_one_block_emulation_matches_pallas_kernel_interpret():
+    """The emulated one-block kernels against the Pallas kernels K1/K2
+    (interpret mode) at n=256."""
+    ref, plan = _plans(256, 30)
+    x = _residues(plan.primes, (2, plan.L, 256), seed=17)
+    y_k = np.asarray(ref.fused.fwd(jnp.asarray(x)))
+    np.testing.assert_array_equal(_emulate_one_block(x.astype(np.int64), plan, False),
+                                  y_k.astype(np.int64))
+    x_k = np.asarray(ref.fused.inv(jnp.asarray(y_k)))
+    np.testing.assert_array_equal(_emulate_one_block(y_k.astype(np.int64), plan, True),
+                                  x_k.astype(np.int64))
+
+
+@pytest.mark.parametrize("log_n, log_na, rounds", [(8, 4, (4, 0, 0, 4)), (9, 4, (4, 0, 1, 4)),
+                                                   (10, 4, (4, 0, 2, 4)), (11, 4, (4, 0, 3, 4)),
+                                                   (12, 4, (4, 0, 4, 4)), (13, 5, (4, 1, 4, 4))])
+def test_one_block_split_and_rounds(log_n, log_na, rounds):
+    """The split per ring and the stages of its rounds (column hi, column lo,
+    row hi, row lo): every stage once, the highest four first, an empty round
+    only where the kernels skip it."""
+    assert one_block_split(log_n) == log_na
+    log_nb = log_n - log_na
+    masks = (15, _stage_mask(log_nb, log_nb, log_nb + log_na - 5),
+             _stage_mask(4, 0, log_nb - 1), _stage_mask(0, 0, log_nb - 1))
+    assert tuple(bin(m).count("1") for m in masks) == rounds and sum(rounds) == log_n
+    stage = lambda hb, mask: [hb + 3 - t for t in range(4) if (mask >> t) & 1]
+    ran = stage(log_n - 4, masks[0]) + stage(log_nb, masks[1]) + stage(4, masks[2]) + stage(0, masks[3])
+    assert ran == list(range(log_n - 1, -1, -1))
+    # the inverse column phase mirrors it: lo runs four stages, hi what is above them
+    inv_hi = _stage_mask(log_nb + log_na - 4, log_nb + 4, log_n - 1)
+    assert bin(inv_hi).count("1") == rounds[1]
+    for bad in (7, 14):
+        with pytest.raises(ValueError):
+            one_block_split(bad)
+
+
+@pytest.mark.parametrize("inverse, L, batch, log_n, want", [
+    (False, 22, 21, 12, ("rfhe_ntt_fwd", (11, 12, 4, 7))),     # 264 resident CTAs: two trips each
+    (True, 21, 1, 12, ("rfhe_ntt_inv", (1, 12, 4, 7))),
+    (True, 1, 2, 12, ("rfhe_ntt_inv", (2, 12, 4, 7))),
+    (False, 22, 21, 13, ("rfhe_ntt_fwd", (6, 13, 5, 7))),      # 132 resident CTAs of 512 threads
+    (False, 1, 70000, 8, ("rfhe_ntt_fwd", (1045, 8, 4, 7))),   # 67 trips; grid.y stays under 65536
+])
+def test_one_block_launch_plan(inverse, L, batch, log_n, want):
+    """The launch of one one-block transform on a card of 132 SMs: entry
+    point, polynomial groups, the ring, its split, the slot order's n1."""
+    n = 1 << log_n
+    plan = launch_plan("one_block", inverse, L, batch, log_n, 0, split_n(n)[0].bit_length() - 1, 132)
+    assert plan == (want,)
+    assert plan is launch_plan("one_block", inverse, L, batch, log_n, 0, 7, 132)   # kept per shape
+    assert launch_plan(TWO_PASS, inverse, L, batch, log_n, 6, 7, 132) == \
+        tuple(large_passes(TWO_PASS, inverse, L, batch, log_n, 6, 7, 132))
 
 
 _SPLITS = [(256, 30, 4), (256, 31, 5), (256, 30, 7), (2048, 31, 4), (4096, 31, 5),
@@ -607,15 +729,22 @@ def test_resident_ctas():
     assert resident_ctas(132, 16) == 8 * 132 and resident_ctas(4, 1024) == 4
 
 
-@pytest.mark.parametrize("n, want, large", [(4096, 0, 6), (8192, 0, 7), (16384, 7, 7),
+@pytest.mark.parametrize("n, want, large", [(256, 0, 4), (4096, 0, 6), (8192, 0, 7), (16384, 7, 7),
                                             (32768, 8, 8), (65536, 8, 8)])
 def test_default_split_and_geometry(n, want, large):
-    """Rings up to 8192 take the one-block form by themselves, larger ones
-    the large-ring form at its own split, whose nb equals the slot order's
-    n1.  Its tiles keep 16 elements per thread in at most 512 threads."""
+    """Rings up to 8192 take the one-block form by themselves (and no larger
+    ring can), larger ones the large-ring form at its own split, whose nb
+    equals the slot order's n1.  Its tiles keep 16 elements per thread in at
+    most 512 threads."""
     kind, log_na = resolve_split(n, None, 21 * 22)
     assert log_na == want and (kind == "one_block") == (want == 0)
     assert default_split(n) == want and large_split(n) == large
+    assert (n <= MAX_ONE_BLOCK_N) == (want == 0) and resolve_split(n, 0, 1) == ("one_block", 0)
+    if want == 0:
+        assert (n >> one_block_split(n.bit_length() - 1)) <= 256 and n // 16 <= 512
+    else:
+        with pytest.raises(ValueError):
+            one_block_split(n.bit_length() - 1)
     by_size = TWO_PASS if n >= 16384 else CLUSTER                      # by the launch's size in words
     assert resolve_split(n, large, 21 * 22) == (by_size, large)
     assert resolve_split(n, large, 3 * 28) == (CLUSTER, large)
