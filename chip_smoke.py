@@ -10,10 +10,14 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
      on the card, bit for bit: the one-block kernels at the N=4096 path's
      shapes and at every ring they take, n=256 ... 8192; the two-pass and
      cluster kernels at n=16384, 32768 and 65536 at the large paths' shapes
-     (per-limb and grouped digits, special limbs, mod-down deltas,
-     non-contiguous takes, 30- and 31-bit primes); batches that the polynomial
-     groups do not divide and a batch of 70000, in every form; and the
-     large-ring kernels at n=256 ... 4096 beside the one-block kernels
+     (per-limb and grouped digits, special limbs, mod-down deltas, the
+     protection guard's tables, non-contiguous takes, 30- and 31-bit primes);
+     batches that the polynomial groups do not divide and a batch of 70000, in
+     every form; and the large-ring kernels at n=256 ... 4096 beside the
+     one-block kernels.  Four vectors each: random, all q-1, a spike, and
+     random residues with one bit flipped per vector (words up to 2^32, some
+     at or above q, as a fault stage hands them to the kernels), which go
+     through both directions
   4. N=4096 path: CKKS with 21 ciphertext primes and one special prime (the
      reference's bench.py configuration): encode, encrypt, rotate by 1,
      decrypt; multiply_relin, rescale, decrypt; the keyswitch digits of c1
@@ -26,8 +30,20 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
      multiply_relin and rescale twice, a rotation at the lowered level; the
      same seed on the CPU gives identical arrays
   7. one rotation each at N=8192, N=16384 and N=32768, 21+1 limbs
-  8. launch counts per rotation at each ring and for dnum=3
-  9. times: a trivial launch by the device timer (`device.device_ms`: CUDA
+  8. the protected evaluator (fhe/protected.py) on the N=4096, N=65536 and
+     N=65536 dnum=3 contexts: clean rotate(1) and multiply_relin identical to
+     the plain evaluator with every flag true; one fault per stage of
+     tests/test_protected.py fires its detector, a ks_out fault none; at
+     N=4096 the same keys and ciphertext on the CPU give identical arrays and
+     flags for the clean ops and two fault stages
+  9. the flip campaign (faults/evaluator_campaign.py) with its honesty
+     asserts: n=1024, 3 levels, seed 0, both ops, 256 trials per stage, and
+     N=4096 21+1 at 32; every row printed
+ 10. launch counts per rotation at each ring and for dnum=3
+ 11. protection overheads (bench/protected_overhead.py): protected/plain
+     device time, wall and device operations per op at the reference's
+     default (n=4096, 9 levels) and at the paths' widths
+ 12. times: a trivial launch by the device timer (`device.device_ms`: CUDA
      events around launches queued behind a blocker on the stream, which reads
      a kernel's own time also under the host's time per launch), host-paced
      and by torch.profiler; then each kernel form (device timer, and
@@ -37,6 +53,9 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
      (10, 22, n), between which a launch changes from the cluster kernels to
      the two passes, and warm rotations
 
+Launch counts are set to 0 just before each path (the protected ones
+included) and read just after; the kernel records carry their sum and the
+protected paths' share.
 The third-to-last line is the per-kernel JSON record, the second-to-last
 names the card and its power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -50,10 +69,13 @@ import time
 import numpy as np
 import torch
 
+from rfhe_tpu_torch.bench import protected_overhead
 from rfhe_tpu_torch.device import (DEVICE_TIMER, card, cuda_ms, device_ms, profiled_us,
                                    to_numpy_u32)
-from rfhe_tpu_torch.fhe import CkksContext, CkksParams
+from rfhe_tpu_torch.faults import evaluator_campaign
+from rfhe_tpu_torch.fhe import Ciphertext, CkksContext, CkksParams
 from rfhe_tpu_torch.fhe.keys import compute_digits
+from rfhe_tpu_torch.fhe.protected import Fault, ProtectedCkks, all_ok
 from rfhe_tpu_torch.fhe.params import make_prime_chain
 from rfhe_tpu_torch.fhe.rns import poly_intt
 from rfhe_tpu_torch.ops import ntt_cuda
@@ -129,7 +151,10 @@ def basis(n: int, n_special: int) -> tuple:
 
 def test_vectors(plan: NttPlan, batch: int, seed: int) -> list:
     """Random residues, all q-1, and a lone q-1 spike (with a 1 at n/2): the
-    three vectors of the reference's kernel self-check."""
+    three vectors of the reference's kernel self-check; and random residues
+    with one bit in 0..31 flipped per vector, words up to 2^32 that may lie at
+    or above q, as the protected path's fault stages hand them to the
+    kernels."""
     q = np.array(plan.primes, dtype=np.int64)[:, None]
     rng = np.random.default_rng(seed)
     shape = (batch, plan.L, plan.n)
@@ -138,7 +163,11 @@ def test_vectors(plan: NttPlan, batch: int, seed: int) -> list:
     spike = np.zeros(shape, dtype=np.int64)
     spike[..., 0] = (q - 1)[:, 0]
     spike[..., plan.n // 2] = 1
-    return [("random", rand), ("all q-1", full), ("spike", spike)]
+    flipped = rand.copy()
+    rows = flipped.reshape(-1, plan.n)
+    rows[np.arange(len(rows)), rng.integers(0, plan.n, len(rows))] ^= \
+        np.int64(1) << rng.integers(0, 32, len(rows))
+    return [("random", rand), ("all q-1", full), ("spike", spike), ("flipped", flipped)]
 
 
 def forms_of(n: int) -> list:
@@ -173,6 +202,7 @@ def kernel_cases() -> list:
         ("n=4096 (21, 22) keyswitch digits", full, 21, [None, (two_pass, 6), (cluster, 6)]),
         ("n=4096 (2, 1) special limb", full.take([special]), 2, [None, (two_pass, 8), (cluster, 4)]),
         ("n=4096 (2, 21) mod-down delta", full.slice(special), 2, [None]),
+        ("n=4096 (1, 22) guard tables", full, 1, [None]),
         ("n=4096 (1, 21) c1", full.slice(special), 1, [None]),
         ("n=4096 (3, 3) non-contiguous take", full.take([special, 0, 7]), 3, [None, (two_pass, 5), (cluster, 5)]),
         ("n=4096 31-bit (3, 3)", NttPlan.make(4096, make_prime_chain(4096, [31] * 3), "cuda"), 3, [None]),
@@ -200,6 +230,7 @@ def kernel_cases() -> list:
             (f"n={n} (2, 1) special limb", grouped.take([21]), 2, splits),
             (f"n={n} (2, 21) mod-down delta", grouped.slice(21), 2, splits),
             (f"n={n} (1, 21) c1", grouped.slice(21), 1, splits),
+            (f"n={n} (1, 28) guard tables", grouped, 1, splits),
             (f"n={n} (3, 6) take with specials", mixed, 3, splits),
             (f"n={n} (3, 28) grouped digits", grouped, 3, splits),
             # batches that the polynomial groups do not divide (loops of uneven length)
@@ -213,19 +244,24 @@ def kernel_cases() -> list:
 def phase_kernels() -> dict:
     err = dict.fromkeys(ntt_cuda.FORMS, 0)
     checked = dict.fromkeys(ntt_cuda.FORMS, 0)
+    flipped_checked = {False: 0, True: 0}
     kinds = set()
     for i, (name, plan, batch, splits) in enumerate(kernel_cases()):
         vectors = test_vectors(plan, batch, seed=i)
         for vname, xv in vectors if batch <= 64 else vectors[:1]:
             x = torch.from_numpy(xv).cuda()
             y_ref = ntt_fwd_reference(x, plan)
-            back_ref = ntt_inv_reference(y_ref, plan)
+            # the flipped words go into the inverse too; the others' inverse
+            # takes the forward output and must give x back
+            flipped = vname == "flipped"
+            inv_in = x if flipped else y_ref
+            back_ref = ntt_inv_reference(inv_in, plan)
             for split in splits:
                 kind = kind_of(plan, batch, split)
                 large = form_of(kind)
                 kinds.add((kind, plan.n))
                 y = ntt_cuda.fwd(x, plan, split)
-                back = ntt_cuda.inv(y_ref, plan, split)
+                back = ntt_cuda.inv(inv_in, plan, split)
                 torch.cuda.synchronize()
                 e_f = int((y - y_ref).abs().max())
                 e_i = int((back - back_ref).abs().max())
@@ -233,12 +269,15 @@ def phase_kernels() -> dict:
                 err["inv" + large] = max(err["inv" + large], e_i)
                 checked["fwd" + large] += 1
                 checked["inv" + large] += 1
+                flipped_checked[flipped] += 2
                 form = kind if split is None or not large else f"{kind} 2^{split[1]}"
+                round_trip = flipped or torch.equal(back, x)
                 print(f"[kernels] {name:36s} {vname:8s} {form:22s} fwd err {e_f} inv err {e_i} "
-                      f"inv(fwd(x)) == x: {torch.equal(back, x)}")
-                if not (e_f == 0 and e_i == 0 and torch.equal(back, x)):
+                      f"inv(fwd(x)) == x: {'n/a' if flipped else round_trip}")
+                if not (e_f == 0 and e_i == 0 and round_trip):
                     raise RuntimeError(f"kernel disagrees with its plain version: {name}, {vname}, {form}")
-    print(f"[kernels] comparisons per kernel form: {checked}, max abs err {err} (tolerance 0)")
+    print(f"[kernels] comparisons per kernel form: {checked}, of which {flipped_checked[True]} on "
+          f"words with a flipped bit; max abs err {err} (tolerance 0)")
     if min(checked.values()) == 0:
         raise RuntimeError(f"a kernel form was never compared: {checked}")
     missing = [(k, n) for n in LARGE_RINGS for k in (ntt_cuda.TWO_PASS, ntt_cuda.CLUSTER)
@@ -432,6 +471,156 @@ def phase_counts(ctxs: dict) -> dict:
     return cts
 
 
+# The fault stages of tests/test_protected.py:88-95 and :139-141 with the
+# detector each must fire; a ks_out flip lands after the last check.
+ROTATE_FAULTS = (("c1_perm", "intt"), ("intt_out", "intt"), ("digits", "baseconv"),
+                 ("digits_ntt", "ks_core"), ("prod0", "ks_core"), ("acc0", "ks_core"))
+MULTIPLY_FAULTS = (("digits_ntt", "ks_core"), ("acc0", "ks_core"), ("intt_out", "intt"))
+CPU_FAULTS = ("rotate acc0", "multiply_relin intt_out")     # also run on the CPU at N=4096
+
+
+def protected_runs(prot: ProtectedCkks, ct, names=None) -> dict:
+    """name -> (output, flags) of the protected ops: clean rotate(1) and
+    multiply_relin, each rotate and multiply_relin fault stage, ks_out."""
+    runs = {}
+    todo = [("rotate", None), ("multiply_relin", None)]
+    todo += [(f"rotate {s}", Fault(s, 1, 17, 9)) for s, _ in ROTATE_FAULTS]
+    todo += [("rotate ks_out", Fault("ks_out", 0, 3, 4))]
+    todo += [(f"multiply_relin {s}", Fault(s, 0, 11, 7)) for s, _ in MULTIPLY_FAULTS]
+    for name, fault in todo:
+        if names is None or name in names:
+            op = name.split()[0]
+            runs[name] = (prot.rotate(ct, 1, fault) if op == "rotate"
+                          else prot.multiply_relin(ct, ct, fault))
+    return runs
+
+
+def as_numpy(runs: dict) -> dict:
+    return {name: ([to_numpy_u32(p.data) for p in out.c],
+                   {k: v.cpu().numpy() for k, v in flags.items()})
+            for name, (out, flags) in runs.items()}
+
+
+def drive_protected(tag: str, what: str, ctx: CkksContext) -> tuple:
+    """The protected evaluator on one path of the card: clean ops identical to
+    the plain evaluator's with every flag true, each fault stage firing its
+    detector, ks_out firing none.  The launch counts are set to 0 just before
+    the protected ops and read just after.  Returns (ct, runs as numpy,
+    launches, by_kernels)."""
+    n = ctx.params.n
+    ct = ctx.encrypt(*ctx.encode(np.random.default_rng(1).uniform(-1, 1, n // 2) + 0j))
+    plain = {"rotate": ctx.rotate(ct, 1), "multiply_relin": ctx.multiply_relin(ct, ct)}
+    torch.cuda.synchronize()
+    ntt_cuda.KERNELS.reset_counts()
+    t0 = time.perf_counter()
+    prot = ProtectedCkks(ctx)
+    runs = protected_runs(prot, ct)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k = ntt_cuda.KERNELS
+    launches, by_kernels = dict(k.launches), dict(k.by_kernels)
+    if k.fwd_launches == 0 or k.inv_launches == 0:
+        raise RuntimeError(f"{what}: the protected path did not launch both kernels: {launches}")
+    for op, ref in plain.items():
+        out, flags = runs[op]
+        same = all(torch.equal(a.data, b.data) for a, b in zip(out.c, ref.c))
+        print(f"[{tag}] protected {op}: arrays identical to the plain evaluator's: {same}; every "
+              f"flag true: {bool(all_ok(flags))} ({len(flags)} flags: {', '.join(flags)})")
+        if not (same and bool(all_ok(flags))):
+            raise RuntimeError(f"{what}: protected {op} differs from the plain one or raises a flag")
+    clean = {op: runs[op][0] for op in plain}
+    for name, (out, flags) in runs.items():
+        if name in plain:
+            continue
+        op, stage = name.split()
+        want = dict(ROTATE_FAULTS if op == "rotate" else MULTIPLY_FAULTS).get(stage)
+        fired = sorted(f for f, v in flags.items() if not bool(torch.all(v)))
+        changed = any(not torch.equal(a.data, b.data) for a, b in zip(out.c, clean[op].c))
+        print(f"[{tag}] fault {name}: output changed {changed}, detectors fired {fired or 'none'}")
+        if not changed or (want not in fired if want else fired):
+            raise RuntimeError(f"{what}: fault {name} fired {fired}, expected {want or 'none'}")
+    print(f"[{tag}] {what}: {len(runs)} protected ops in {secs:.2f} s (first calls, probes "
+          f"included); kernel launches {launches}; by the kernels that ran {by_kernels}")
+    result = as_numpy(runs)
+    del prot, runs, plain, clean
+    return ct, result, launches, by_kernels
+
+
+def phase_protected(ctxs: dict) -> tuple:
+    """The protected evaluator at N=4096 (held against a CPU run of the same
+    keys and ciphertext), N=65536 per-limb and N=65536 dnum=3."""
+    launches = dict.fromkeys(ntt_cuda.FORMS, 0)
+    by_kernels = dict.fromkeys(ntt_cuda.KERNEL_SETS, 0)
+    for name in ("N=4096", "N=65536", f"N=65536 dnum={DNUM}"):
+        ctx = ctxs[name]
+        ct, runs, path_launches, path_kernels = drive_protected("protected", f"CKKS {name}", ctx)
+        for form, count in path_launches.items():
+            launches[form] += count
+        for kernels, count in path_kernels.items():
+            by_kernels[kernels] += count
+        if name != "N=4096":
+            continue
+        t0 = time.perf_counter()
+        cpu = CkksContext(CkksParams.make(**BENCH), seed=SEED, device="cpu")
+        cpu.load_keys(ctx.export_keys())
+        ct_cpu = Ciphertext.from_numpy(ct.to_numpy(), ct.scale, True, "cpu")
+        names = ("rotate", "multiply_relin") + CPU_FAULTS
+        cpu_runs = as_numpy(protected_runs(ProtectedCkks(cpu), ct_cpu, names))
+        for op in names:
+            (a, fa), (b, fb) = runs[op], cpu_runs[op]
+            same = (all(np.array_equal(x, y) for x, y in zip(a, b)) and list(fa) == list(fb)
+                    and all(np.array_equal(fa[f], fb[f]) for f in fa))
+            if not same:
+                raise RuntimeError(f"protected {op} at N=4096: cuda and cpu differ")
+        print(f"[protected] N=4096: {', '.join(names)}: arrays and flags identical on cuda and cpu "
+              f"(cpu run {time.perf_counter() - t0:.1f} s)")
+    return launches, by_kernels
+
+
+def phase_campaign() -> tuple:
+    """The flip campaign with its honesty asserts: the reference's defaults
+    (n=1024, 3 levels, seed 0, both ops) at 256 trials per stage, and the
+    N=4096 21+1 path at 32."""
+    launches = dict.fromkeys(ntt_cuda.FORMS, 0)
+    for label, kwargs, trials in (("n=1024, 3 levels", dict(n=1024, levels=3), 256),
+                                  ("N=4096, 21+1 limbs", dict(n=4096, levels=20, q0_bits=30), 32)):
+        ntt_cuda.KERNELS.reset_counts()
+        t0 = time.perf_counter()
+        rows = evaluator_campaign.run(trials=trials, seed=0, device="cuda", log=None, **kwargs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for form, count in ntt_cuda.KERNELS.launches.items():
+            launches[form] += count
+        for row in rows:
+            print(f"[campaign] {label}: {json.dumps(row)}")
+        print(f"[campaign] {label}: {len(rows)} stages x {trials} trials, check_row on, in "
+              f"{secs:.2f} s ({secs / (len(rows) * trials) * 1e3:.3f} ms per trial, context, "
+              f"probes and clean runs included)")
+    return launches
+
+
+def phase_overheads(c: str) -> list:
+    """protected/plain by the device timer (NTT, ModMul) and by torch.profiler
+    and the host's wall clock (rotation, multiply+relin) with the device
+    operations per op, at the reference's default and at the paths' widths."""
+    rows = []
+    for kwargs in (dict(n=4096, levels=9, batch=8),
+                   dict(n=4096, levels=20, q0_bits=30, batch=8),
+                   dict(n=65536, levels=20, q0_bits=30, batch=1),
+                   dict(n=65536, levels=20, q0_bits=30, dnum=DNUM,
+                        atoms=("Rotation(e2e)", "HMul+Relin(e2e)"))):
+        for row in protected_overhead.measure(**kwargs):
+            rows.append(row)
+            line = (f"[overhead] {c}: {row['config']} {row['atom']}: plain {row['plain_us']:.1f} us, "
+                    f"protected {row['prot_us']:.1f} us, x{row['overhead']:.2f} by {row['timer']}")
+            if "plain_wall_us" in row:
+                line += (f"; wall {row['plain_wall_us']:.1f} -> {row['prot_wall_us']:.1f} us "
+                         f"(x{row['wall_overhead']:.2f}); device ops per op "
+                         f"{row['plain_launches']:.0f} -> {row['prot_launches']:.0f}")
+            print(line)
+    return rows
+
+
 def bound_ms(batch: int, L: int, n: int) -> tuple:
     """(ms, 'bytes' or 'operations'): the least time the card could take for
     one transform of (batch, L, n) int64 residues.
@@ -554,7 +743,7 @@ def phase_times(ctxs: dict, cts: dict, c: str) -> dict:
     return times
 
 
-def kernel_records(err: dict, launches: dict, times: dict) -> list:
+def kernel_records(err: dict, launches: dict, times: dict, protected: dict) -> list:
     """One record per kernel form at its path's keyswitch shape, in the form
     that shape takes by itself, with every other shape and form timed in this
     run under `other_shapes`.  `ms` is the device timer's reading, `paced_ms`
@@ -568,6 +757,7 @@ def kernel_records(err: dict, launches: dict, times: dict) -> list:
                       if dd == d and form_of(kind) == large and v is not head]
             records.append({"name": f"ntt_{d}{large}", "route": "cuda", "source": SOURCE,
                             "replaces": REPLACES[d], "launches": launches[d + large],
+                            "launches_protected": protected[d + large],
                             "max_abs_err": err[d + large], "ms": head["ms"],
                             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                             "bound_by": head["bound_by"], "library_ms": None,
@@ -595,13 +785,21 @@ def main() -> None:
         ctxs[f"N={n}"] = ctx
         for form, count in ring_launches.items():
             launches[form] += count
-    print(f"[main] kernel launches over all counted paths: {launches}")
-    print(f"[main] on the N=4096 and the two N=65536 paths, by the kernels that ran: {by_kernels}")
+    protected, prot_kernels = phase_protected(ctxs)
+    for form, count in phase_campaign().items():
+        protected[form] += count
+    for form, count in protected.items():
+        launches[form] += count
+    print(f"[main] kernel launches over all counted paths: {launches}, of which on the protected "
+          f"paths and the campaigns {protected}")
+    print(f"[main] on the N=4096 and the two N=65536 paths, by the kernels that ran: {by_kernels}; "
+          f"protected: {prot_kernels}")
     if min(launches.values()) == 0 or min(by_kernels.values()) == 0:
         raise RuntimeError(f"kernels that no path launched: {launches}, {by_kernels}")
     cts = phase_counts(ctxs)
+    phase_overheads(c)
     times = phase_times(ctxs, cts, c)
-    print(json.dumps({"kernels": kernel_records(err, launches, times)}))
+    print(json.dumps({"kernels": kernel_records(err, launches, times, protected)}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

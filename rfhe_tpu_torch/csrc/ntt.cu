@@ -24,9 +24,13 @@
 // Per-limb tables are indexed by a limb-id array, so a plan over any subset
 // of the chain shares one set of tables:
 //   tw:     (Lf, 4, n) uint32 [ψ^brev, Shoup, ψ^-brev, Shoup] per chain limb
-//   consts: (Lf, 8) uint32 [q, R, R', n⁻¹R⁻¹, (n⁻¹R⁻¹)', 0, 0, 0]
+//   consts: (Lf, 8) uint32 [q, R, R', n⁻¹R⁻¹, (n⁻¹R⁻¹)', ⌊2^32/q⌋, 0, 0]
 //   limbs:  (L,) chain index of each limb
-//   x, y:   (B, L, n) int64, canonical residues
+//   x, y:   (B, L, n) int64, words below 2^32 in, canonical residues out
+// An input word need not be a residue below q: a fault campaign flips bits of
+// live operands, and the plain versions reduce such a word in their first
+// product.  The kernels reduce every word as they take it (enter16), so the
+// butterflies' ranges hold and the output is that of the word mod q.
 // The device functions of the large-ring section below (register rounds,
 // twiddle slots, exchanges, the closed-form slot) serve all kernels; the
 // one-block kernels follow the cluster kernels, whose shape they share.
@@ -287,6 +291,17 @@ __device__ __forceinline__ void tables_of(Large& g, const uint32_t* __restrict__
   g.lazy = g.q < (1u << 30);
 }
 
+// Entry of a vector: 16 words below 2^32 to [0, q).  The lazy Shoup product by
+// 1 (w' = ⌊2^32/q⌋) takes a word to [0, 2q), one correction to [0, q).
+__device__ __forceinline__ void enter16(uint32_t (&a)[16], const Large& g) {
+  const uint32_t s = g.c[5];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const uint32_t r = a[e] - __umulhi(a[e], s) * g.q;
+    a[e] = min(r, r - g.q);
+  }
+}
+
 __device__ __forceinline__ Large large_of(const uint32_t* __restrict__ tw,
                                           const uint32_t* __restrict__ consts,
                                           const int32_t* __restrict__ limbs, int l,
@@ -500,6 +515,7 @@ ntt_fwd_col_kernel(const int64_t* __restrict__ x, uint32_t* __restrict__ tmp,
     copy16(a, nxt);
     if (b + (int)gridDim.y < B)
       load_coeffs(nxt, x, ((size_t)(b + gridDim.y) * L + g.l) * n, col, g, th);
+    enter16(a, g);
     if (g.lazy) fwd_col_phase<true>(a, bufs + (it & 1) * tile, g, th, log_c);
     else fwd_col_phase<false>(a, bufs + (it & 1) * tile, g, th, log_c);
 #pragma unroll
@@ -562,6 +578,7 @@ ntt_inv_row_kernel(const int64_t* __restrict__ y, uint32_t* __restrict__ tmp,
     copy16(a, nxt);
     if (b + (int)gridDim.y < B)
       load_slots(nxt, y, ((size_t)(b + gridDim.y) * L + g.l) * n, base, g);
+    enter16(a, g);
     if (g.lazy) inv_row_phase<true>(a, xbs + (it & 1) * padded, g, th, tw_lo);
     else inv_row_phase<false>(a, xbs + (it & 1) * padded, g, th, tw_lo);
     uint32_t* dst = tmp + ((size_t)b * L + g.l) * n + base;
@@ -699,6 +716,7 @@ ntt_fwd_cluster_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ y,
     copy16(a, nxt);
     if (bb + G < B) load_coeffs(nxt, x, ((size_t)(bb + G) * L + g.l) * n, col, g, ct);
 #endif
+    enter16(a, g);
     if (g.lazy) fwd_col_phase<true>(a, cb, g, ct, log_c);
     else fwd_col_phase<false>(a, cb, g, ct, log_c);
 #pragma unroll
@@ -754,6 +772,7 @@ ntt_inv_cluster_kernel(const int64_t* __restrict__ y, int64_t* __restrict__ x,
   auto produce = [&](int bb, int k) {                // row phase of polynomial bb
     copy16(a, nxt);
     if (bb + G < B) load_slots(nxt, y, ((size_t)(bb + G) * L + g.l) * n, base, g);
+    enter16(a, g);
     if (g.lazy) inv_row_phase<true>(a, xb, g, rt, tw_lo);
     else inv_row_phase<false>(a, xb, g, rt, tw_lo);
 #pragma unroll
@@ -937,6 +956,7 @@ ntt_fwd_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ y,
   for (; b < B; b += G) {
     copy16(a, nxt);
     if (b + G < B) load_coeffs(nxt, x, ((size_t)(b + G) * L + g.l) * n, ob.ct.c, g, ob.ct);
+    enter16(a, g);
     if (g.lazy) fwd_one_block<true, ROUNDS>(a, ob, g, tw_lo);
     else fwd_one_block<false, ROUNDS>(a, ob, g, tw_lo);
     store_slots(a, y, ((size_t)b * L + g.l) * n, 0, g);
@@ -964,6 +984,7 @@ ntt_inv_kernel(const int64_t* __restrict__ y, int64_t* __restrict__ x,
   for (; b < B; b += G) {
     copy16(a, nxt);
     if (b + G < B) load_slots(nxt, y, ((size_t)(b + G) * L + g.l) * n, 0, g);
+    enter16(a, g);
     if (g.lazy) inv_one_block<true, ROUNDS>(a, ob, g, tw_lo);
     else inv_one_block<false, ROUNDS>(a, ob, g, tw_lo);
     store_coeffs(a, x, ((size_t)b * L + g.l) * n, ob.ct.c, g, ob.ct);

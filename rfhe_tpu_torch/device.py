@@ -143,13 +143,14 @@ def device_ms(fn, reps: int = 20) -> float:
                        f"(blocker {block_ms / 2:.1f} ms)")
 
 
-def profiled_us(fn, reps: int = 20, match: str = "", between=None) -> float:
-    """Device microseconds per call of `fn` by torch.profiler: the sum of the
-    own durations of its kernels whose names contain `match`, without the gaps
-    between them.  `between`, if given, is called before every call of `fn`
-    (to evict the L2, say); its kernels count only if they match too.  A
-    profile that comes back without a device event (it happens when profiles
-    follow each other closely) is taken again, three times at most."""
+def profile_kernels(fn, reps: int = 20, match: str = "", between=None) -> tuple:
+    """(device microseconds, kernel launches) per call of `fn` by
+    torch.profiler: the sum of the own durations of its kernels whose names
+    contain `match`, without the gaps between them, and how many ran.
+    `between`, if given, is called before every call of `fn` (to evict the
+    L2, say); its kernels count only if they match too.  A profile that comes
+    back without a device event (it happens when profiles follow each other
+    closely) is taken again, three times at most."""
     fn()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(3):
@@ -160,8 +161,27 @@ def profiled_us(fn, reps: int = 20, match: str = "", between=None) -> float:
                     between()
                 fn()
             torch.cuda.synchronize()
-        total = sum(ev.device_time_total for ev in prof.events()
-                    if ev.device_type == torch.autograd.DeviceType.CUDA and match in ev.name)
+        kernels = [ev for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA and match in ev.name]
+        total = sum(ev.device_time_total for ev in kernels)
         if total > 0:
-            return total / reps
+            return total / reps, len(kernels) / reps
     raise RuntimeError(f"the profiler recorded no device time for kernels matching {match!r}")
+
+
+def profiled_us(fn, reps: int = 20, match: str = "", between=None) -> float:
+    """Device microseconds per call of `fn` by torch.profiler
+    (`profile_kernels`)."""
+    return profile_kernels(fn, reps, match, between)[0]
+
+
+def wall_us(fn, reps: int = 20) -> float:
+    """Host microseconds per call of `fn`, each call waited for: what one op
+    costs a caller who reads its result."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6

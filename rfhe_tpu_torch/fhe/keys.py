@@ -22,7 +22,7 @@ import torch
 
 from ..device import to_torch
 from ..numth import mod_inv, shoup_precompute
-from ..ops.modarith import add_mod, mont_mul, mul_mod, mul_mod_shoup, reduce_mod, sub_mod
+from ..ops.modarith import add_mod, mont_mul, mul_mod, mul_mod_shoup, sub_mod
 from .rns import RnsContext, drop_limb
 
 
@@ -156,36 +156,53 @@ def _group_ext_consts(moduli: tuple, G: tuple, lim: tuple):
 
 
 def _extend_group(d_coeff: torch.Tensor, G: List[int], lim: List[int],
-                  ctx: RnsContext) -> torch.Tensor:
+                  ctx: RnsContext) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fast base extension of the grouped digit [d]_{Q_G} to the basis `lim`
     (`keys.py:268-295`): r'_l = d_l·tilde_l mod q_l, then for each target
     limb i the sum Σ_l (r'_l mod q_i)·W[l,i] mod q_i.  As in the reference
-    the sum is not corrected for its multiple of Q_G.  Returns (len(lim), N).
-    Every factor is < 2^31, so r'_l·W[l,i] < 2^62 is exact in int64 and equals
-    (r'_l mod q_i)·W[l,i] mod q_i after one `%`; the Shoup companions of the
-    constants are not needed."""
-    tilde, _, W, _ = _group_ext_consts(tuple(ctx.moduli), tuple(G), tuple(lim))
-    tilde, W = to_torch(tilde, ctx.device), to_torch(W, ctx.device)
+    the sum is not corrected for its multiple of Q_G.  Returns the digit
+    (len(lim), N) and r' (α, N).  Every factor is < 2^31 (d_l < 2^32), so the
+    products are exact in int64 and one `%` reduces each; the Shoup
+    companions of the constants are not needed."""
+    tilde, W = _group_tables(ctx, G, lim)
     q = ctx.plan.tables.q
     q_lim = q[ctx.index(lim)][:, None]
     rprime = mul_mod(d_coeff[G[0]:G[-1] + 1], tilde[:, None], q[ctx.index(G)][:, None])
     terms = mul_mod(rprime[:, None, :], W[:, :, None], q_lim)       # (α, n_lim, N)
-    return _sum_digits(terms, q_lim)
+    return _sum_digits(terms, q_lim), rprime
+
+
+def _group_tables(ctx: RnsContext, G: List[int], lim: List[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tilde (α,) and W (α, len(lim)) of `_group_ext_consts` on the device."""
+    def make():
+        tilde, _, W, _ = _group_ext_consts(tuple(ctx.moduli), tuple(G), tuple(lim))
+        return to_torch(tilde, ctx.device), to_torch(W, ctx.device)
+    return ctx.cached(("group_ext", tuple(G), tuple(lim)), make)
+
+
+def _single_moduli(moduli: tuple, limbs: tuple, lim: tuple) -> np.ndarray:
+    """(len(limbs), len(lim)) moduli that extend the single-limb digit of limb
+    l to limb i of `lim`: q_i where the reference reduces (`keys.py:255-263`),
+    2^32 where it passes the word through (i == l or q_i > q_l), so that one
+    broadcast `%` of words below 2^32 gives the reference's digits, also for
+    a word at or above q_l."""
+    return np.array([[1 << 32 if i == l or moduli[i] > moduli[l] else moduli[i] for i in lim]
+                     for l in limbs], dtype=np.int64)
 
 
 def compute_digits(d_coeff: torch.Tensor, level: int, ctx: RnsContext,
                    n_ct_limbs: int, dnum: Optional[int] = None,
-                   with_ecc: bool = False
-                   ) -> Tuple[torch.Tensor, List[int], List[int]]:
+                   with_ecc: bool = False) -> tuple:
     """Digit decomposition + base extension for the hybrid keyswitch
     (`rfhe_tpu.fhe.keys.compute_digits`).  Returns (dig (n_used, n_lim, N)
-    coefficient domain, used group indices, lim basis).  dnum=None means
-    per-limb digits here.  A group with one active limb l extends v = d[l]
-    to every limb i of lim as v mod q_i, which is v itself where q_l <= q_i:
-    one broadcast `%` does all such groups at once.  A group with several
-    active limbs takes the fast base extension of `_extend_group`."""
-    if with_ecc:
-        raise NotImplementedError("with_ecc digits are not ported yet")
+    coefficient domain, used group indices, lim basis); with_ecc=True also
+    refs (n_used, n_lim), the appended-checksum references Σ_N dig[g, i] mod
+    q_i predicted from exact sums of the inputs, which the protected evaluator
+    holds the digits against.  dnum=None means per-limb digits here.  A group
+    with one active limb l extends v = d[l] to every limb of lim by one
+    broadcast `%` (`_single_moduli`); a group with several active limbs takes
+    the fast base extension of `_extend_group`, and its reference is
+    Σ_l W[l,i]·(Σ_N r'_l mod q_i) mod q_i over the same r'."""
     L = n_ct_limbs
     active = level + 1
     if dnum is None:
@@ -195,12 +212,31 @@ def compute_digits(d_coeff: torch.Tensor, level: int, ctx: RnsContext,
     groups = [(gi, G) for gi, grp in enumerate(_digit_groups(L, dnum))
               if (G := [l for l in grp if l < active])]
     used = [gi for gi, _ in groups]
+    single_q = lambda limbs: ctx.cached(
+        ("single", tuple(limbs), tuple(lim)),
+        lambda: to_torch(_single_moduli(tuple(ctx.moduli), tuple(limbs), tuple(lim)), ctx.device))
     if all(len(G) == 1 for _, G in groups):
         # α = 1 or one active limb: the digits are limbs 0..active-1 in order
-        return reduce_mod(d_coeff[:active, None, :], q_lim[None, :, None]), used, lim
-    digits = [reduce_mod(d_coeff[G[0]][None, :], q_lim[:, None]) if len(G) == 1
-              else _extend_group(d_coeff, G, lim, ctx) for _, G in groups]
-    return torch.stack(digits), used, lim
+        dig = d_coeff[:active, None, :] % single_q(range(active))[:, :, None]
+        if not with_ecc:
+            return dig, used, lim
+        return dig, used, lim, d_coeff[:active].sum(dim=-1)[:, None] % q_lim
+    digits, refs = [], []
+    for _, G in groups:
+        if len(G) == 1:
+            v = d_coeff[G[0]]
+            digits.append(v[None, :] % single_q(G)[0][:, None])
+            if with_ecc:
+                refs.append(v.sum() % q_lim)
+        else:
+            dig, rprime = _extend_group(d_coeff, G, lim, ctx)
+            digits.append(dig)
+            if with_ecc:
+                s_red = rprime.sum(dim=-1)[:, None] % q_lim                # (α, n_lim)
+                refs.append((s_red * _group_tables(ctx, G, lim)[1] % q_lim).sum(dim=0) % q_lim)
+    if not with_ecc:
+        return torch.stack(digits), used, lim
+    return torch.stack(digits), used, lim, torch.stack(refs)
 
 
 def keyswitch(d_coeff: torch.Tensor, ksk: KeySwitchKey, level: int,

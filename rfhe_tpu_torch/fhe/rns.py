@@ -33,6 +33,7 @@ class RnsContext:
     qk_inv_shoup: torch.Tensor
     _index: Dict[Tuple[int, ...], torch.Tensor] = field(default_factory=dict)
     _perms: Dict[int, torch.Tensor] = field(default_factory=dict)
+    _consts: Dict[tuple, object] = field(default_factory=dict)
 
     @classmethod
     def make(cls, n: int, moduli: Sequence[int], device) -> "RnsContext":
@@ -67,6 +68,13 @@ class RnsContext:
         if t is None:
             t = self._index[key] = torch.tensor(key, dtype=torch.int64, device=self.device)
         return t
+
+    def cached(self, key: tuple, make):
+        """Tables on the device, built by `make()` at first use of `key`."""
+        hit = self._consts.get(key)
+        if hit is None:
+            hit = self._consts[key] = make()
+        return hit
 
     def plan_at(self, level: int) -> NttPlan:
         return self.plan.slice(level + 1)
@@ -145,6 +153,11 @@ def lift_to_limbs(v: torch.Tensor, src_k: int, dst: Sequence[int],
     return r
 
 
+def limb_plan(ctx: RnsContext, i: int) -> NttPlan:
+    """Single-limb view of the chain's plan (for per-limb inverse NTTs)."""
+    return ctx.plan.take([i])
+
+
 def drop_limb(data: torch.Tensor, src_k: int, n_keep,
               ctx: RnsContext, t: Optional[int] = None) -> torch.Tensor:
     """Exact RNS divide-and-round (`rfhe_tpu.fhe.rns.drop_limb`, CKKS mode):
@@ -157,7 +170,7 @@ def drop_limb(data: torch.Tensor, src_k: int, n_keep,
         raise NotImplementedError("drop_limb's BGV t-mode is not ported yet")
     keep = list(range(n_keep)) if isinstance(n_keep, int) else list(n_keep)
     nk = len(keep)
-    src_row = ctx.plan.take([src_k]).inv(data[..., nk:nk + 1, :].contiguous())
+    src_row = limb_plan(ctx, src_k).inv(data[..., nk:nk + 1, :].contiguous())
     delta = lift_to_limbs(src_row[..., 0, :], src_k, keep, ctx, centered=True)
     delta_ntt = ctx.plan.take(keep).fwd(delta)
     keep_idx = ctx.index(keep)

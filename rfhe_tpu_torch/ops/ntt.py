@@ -10,8 +10,10 @@ and R = 2^32 mod q:
   inverse  x[..., l, t] = n⁻¹ · R⁻¹ · Σ_p y[..., l, p] · ψ^(−(2·nu[p]+1)·t)
 
 with the reference's slot order nu[p] = (p mod n1)·n2 + ⌊p/n1⌋ and its split
-rule for n1 (`ntt_mxu.py:175-178`).  Both directions take and return
-canonical residues in [0, q).
+rule for n1 (`ntt_mxu.py:175-178`).  Both directions return canonical
+residues in [0, q) and take any words below 2^32: a word at or above q (a
+flipped bit in a fault campaign) is transformed as the word mod q, as the
+reference's digit matmuls do.
 
 Both are computed as radix-2 butterfly networks: Cooley-Tukey forward on
 bit-reversed ψ powers (output in bit-reversed order), Gentleman-Sande
@@ -131,9 +133,10 @@ class _ChainTables:
     psi_inv_rev: torch.Tensor    # (Lf, n) ψ^-brev(i)
     pos: torch.Tensor            # (n,) int64 brev(nu[p])
     pos_inv: torch.Tensor        # (n,) int64, pos_inv[pos[p]] = p
+    nu_inv_t: torch.Tensor       # (n,) int64, the slot of NTT coefficient k
     # the same tables packed for the CUDA kernels (uint32 bits in int32):
     kernel_tw: torch.Tensor      # (Lf, 4, n) [ψ^brev, Shoup, ψ^-brev, Shoup]
-    kernel_consts: torch.Tensor  # (Lf, 8) [q, R, R', n⁻¹R⁻¹, (n⁻¹R⁻¹)', 0, 0, 0]
+    kernel_consts: torch.Tensor  # (Lf, 8) [q, R, R', n⁻¹R⁻¹, (n⁻¹R⁻¹)', ⌊2^32/q⌋, 0, 0]
     views: Dict[Tuple[int, ...], "NttPlan"] = field(default_factory=dict)
 
     @classmethod
@@ -142,7 +145,7 @@ class _ChainTables:
         n1, _ = split_n(n)
         Lf = len(primes)
         brev = _bit_reverse(n)
-        nu, _ = _slot_order(n, n1)
+        nu, nu_inv = _slot_order(n, n1)
         pos = brev[nu]
         pos_inv = np.empty(n, dtype=np.int64)
         pos_inv[pos] = np.arange(n)
@@ -163,7 +166,7 @@ class _ChainTables:
             rinv = mod_inv(r, q)
             ninv_rinv = mod_inv(n, q) * rinv % q
             scal[li] = (q, rinv, r, ninv_rinv)
-            consts[li, :5] = (q, r, (r << 32) // q, ninv_rinv, (ninv_rinv << 32) // q)
+            consts[li, :6] = (q, r, (r << 32) // q, ninv_rinv, (ninv_rinv << 32) // q, _R // q)
         qcol = np.array(primes, dtype=np.uint64)[:, None]
         tw = np.stack([psi_rev, _shoup(psi_rev, qcol),
                        psi_inv_rev, _shoup(psi_inv_rev, qcol)], axis=1)
@@ -175,7 +178,7 @@ class _ChainTables:
             rinv=t64(scal[:, 1]), r_mod=t64(scal[:, 2]),
             ninv_rinv=t64(scal[:, 3]),
             psi_rev=t64(psi_rev), psi_inv_rev=t64(psi_inv_rev),
-            pos=dev(pos), pos_inv=dev(pos_inv),
+            pos=dev(pos), pos_inv=dev(pos_inv), nu_inv_t=dev(nu_inv),
             kernel_tw=_bits32(tw).to(device), kernel_consts=_bits32(consts).to(device),
         )
 
@@ -231,7 +234,13 @@ class NttPlan:
 
     @property
     def nu(self) -> np.ndarray:
+        """Slot p holds NTT coefficient nu[p] (`MxuNttPlan.nu`)."""
         return _slot_order(self.n, self.n1)[0]
+
+    @property
+    def nu_inv(self) -> np.ndarray:
+        """NTT coefficient k sits in slot nu_inv[k] (`MxuNttPlan.nu_inv`)."""
+        return _slot_order(self.n, self.n1)[1]
 
     def galois_perm(self, g: int) -> np.ndarray:
         return _galois_perm_mxu(self.n, self.n1, g)

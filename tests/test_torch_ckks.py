@@ -10,7 +10,7 @@ import torch
 from rfhe_tpu.fhe import CkksContext as RefContext, CkksParams as RefParams
 from rfhe_tpu.ops.crt64 import Crt64Plan as RefCrt64Plan, crt_to_words as ref_crt_to_words
 from rfhe_tpu_torch.fhe import Ciphertext, CkksContext, CkksParams
-from rfhe_tpu_torch.fhe.keys import compute_digits
+from rfhe_tpu_torch.fhe.keys import compute_digits, keyswitch
 from rfhe_tpu_torch.fhe.rns import drop_limb
 from rfhe_tpu_torch.ops.crt64 import Crt64Plan, crt_to_words
 
@@ -169,6 +169,7 @@ def test_outside_the_slice_raises(pair):
     with pytest.raises(NotImplementedError):
         drop_limb(d, 2, 2, tc.ctx, t=65537)
     with pytest.raises(NotImplementedError):
-        compute_digits(d, 2, tc.ctx, tc.L, with_ecc=True)
+        keyswitch(d, tc.rlk, 2, tc.ctx, tc.L, t=65537)
+    assert len(compute_digits(d, 2, tc.ctx, tc.L, with_ecc=True)) == 4
     with pytest.raises(TypeError):
         CkksContext(CkksParams.make(**PARAMS), seed=3)      # no default device

@@ -142,3 +142,46 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         ntt_cuda.fwd(x, plan, ("rows", 8))       # no such form
     with pytest.raises(ValueError):
         ntt_cuda.fwd(x.cpu(), plan)              # a CPU tensor never reaches the kernel
+
+
+@pytest.mark.parametrize("n, bits, split", [(256, 30, None), (4096, 31, None), (8192, 30, None),
+                                            (16384, 30, (ntt_cuda.TWO_PASS, 7)),
+                                            (65536, 30, (ntt_cuda.CLUSTER, 8)),
+                                            (65536, 31, (ntt_cuda.TWO_PASS, 8))])
+def test_kernels_on_flipped_words(cuda, n, bits, split):
+    """Words with a flipped bit (up to 2^32, some at or above q) in both
+    directions: each kernel reduces a word on entry, so it gives the plain
+    versions' output, the transform of the words mod q."""
+    plan = NttPlan.make(n, find_ntt_primes(n, bits, 3), cuda).take([2, 0])
+    x = _rand(plan, 3, n)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    rows = x.view(-1, n)
+    idx = torch.randint(0, n, (rows.shape[0],), device=cuda, generator=g)
+    bit = torch.randint(0, 32, (rows.shape[0],), device=cuda, generator=g)
+    rows[torch.arange(rows.shape[0], device=cuda), idx] ^= torch.ones_like(bit) << bit
+    assert torch.equal(ntt_cuda.fwd(x, plan, split), ntt_fwd_reference(x, plan))
+    assert torch.equal(ntt_cuda.inv(x, plan, split), ntt_inv_reference(x, plan))
+
+
+def test_protected_ops_match_cpu(cuda):
+    """The protected rotate and multiply_relin at n=1024 on the card equal a
+    CPU run of the same seed, arrays and flags, clean and under two faults."""
+    import numpy as np
+    from rfhe_tpu_torch.fhe import CkksContext, CkksParams
+    from rfhe_tpu_torch.fhe.protected import Fault, ProtectedCkks, all_ok
+
+    runs = []
+    for dev in (cuda, "cpu"):
+        ctx = CkksContext(CkksParams.make(n=1024, levels=3), seed=3, dnum=2, device=dev)
+        prot = ProtectedCkks(ctx)
+        ct = ctx.encrypt(*ctx.encode(np.random.default_rng(7).normal(size=512)))
+        ops = [prot.rotate(ct, 1), prot.multiply_relin(ct, ct),
+               prot.rotate(ct, 1, Fault("acc0", 1, 17, 9)),
+               prot.multiply_relin(ct, ct, Fault("intt_out", 0, 11, 7))]
+        assert bool(all_ok(ops[0][1])) and bool(all_ok(ops[1][1]))
+        assert not bool(all_ok(ops[2][1])) and not bool(all_ok(ops[3][1]))
+        runs.append([([c.data.cpu() for c in out.c], {k: v.cpu() for k, v in flags.items()})
+                     for out, flags in ops])
+    for (a, fa), (b, fb) in zip(*runs):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert list(fa) == list(fb) and all(torch.equal(fa[k], fb[k]) for k in fa)

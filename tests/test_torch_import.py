@@ -26,6 +26,9 @@ def test_import_without_jax():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import rfhe_tpu_torch, rfhe_tpu_torch.fhe, rfhe_tpu_torch.ops.ntt_cuda\n"
+        "import rfhe_tpu_torch.protect.checks, rfhe_tpu_torch.protect.ntt_guard\n"
+        "import rfhe_tpu_torch.fhe.protected, rfhe_tpu_torch.faults.evaluator_campaign\n"
+        "import rfhe_tpu_torch.bench.protected_overhead\n"
         "bad = [m for m, mod in sys.modules.items()\n"
         "       if mod is not None and m.split('.')[0] in ('jax', 'rfhe_tpu')]\n"
         "assert not bad, bad\n"

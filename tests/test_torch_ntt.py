@@ -152,6 +152,14 @@ def _packed(plan):
 # of a CTA: `a` is (threads, 16), the registers of every thread.
 
 
+def _enter(v, cs, lid):
+    """enter16: words below 2^32 to [0, q), the lazy Shoup product by 1
+    (w' = floor(2^32/q), the constant in slot 5) and one correction."""
+    q = cs[lid, 0]
+    r = (v - ((v * cs[lid, 5]) >> np.uint64(32)) * q) & _M32
+    return np.minimum(r, (r - q) & _M32)
+
+
 def _stage_mask(hb, h_lo, h_hi):
     return sum(1 << t for t in range(4) if h_lo <= hb + 3 - t <= h_hi)
 
@@ -360,7 +368,8 @@ def _emulate_large(x, plan, inverse, log_na, kind=TWO_PASS, slots=4):
                     # of the CTA that owns the column, as (row, column in tile)
                     recv = [_Exchange(ct.words()) for ct in cols]
                     for rt in rows_:
-                        a = x[b, l][_slot_of(rt.base + rt.word_lo, log_n, log_n1)].astype(np.uint64)
+                        a = _enter(x[b, l][_slot_of(rt.base + rt.word_lo, log_n, log_n1)]
+                                   .astype(np.uint64), cs, lid)
                         rt.phase(a)
                         j = rt.base + rt.word_hi
                         r, cc = j >> log_nb, j & ((1 << log_nb) - 1)
@@ -379,7 +388,7 @@ def _emulate_large(x, plan, inverse, log_na, kind=TWO_PASS, slots=4):
                     recv = [_Exchange(tile + (tile >> 4)) for _ in range(tiles)]
                     log_rows = log_na - (log_nb - log_c)
                     for k, ct in enumerate(cols):
-                        a = x[b, l][col_addr[k](ct, ct.row_hi)].astype(np.uint64)
+                        a = _enter(x[b, l][col_addr[k](ct, ct.row_hi)].astype(np.uint64), cs, lid)
                         ct.phase(a)
                         r = ct.row_lo
                         local = rows_pad(((r & ((1 << log_rows) - 1)) << log_nb)
@@ -400,7 +409,8 @@ def _emulate_large(x, plan, inverse, log_na, kind=TWO_PASS, slots=4):
         row_pass = [(b, rt) for g in range(g_row) for b in range(g, B, g_row) for rt in rows_]
         if inverse:
             for b, rt in row_pass:
-                a = x[b, l][_slot_of(rt.base + rt.word_lo, log_n, log_n1)].astype(np.uint64)
+                a = _enter(x[b, l][_slot_of(rt.base + rt.word_lo, log_n, log_n1)]
+                           .astype(np.uint64), cs, lid)
                 rt.phase(a)
                 tmp[b][rt.base + rt.word_hi] = a
             assert tmp.max() < (1 << 32)
@@ -410,7 +420,7 @@ def _emulate_large(x, plan, inverse, log_na, kind=TWO_PASS, slots=4):
                 out[b, l][col_addr[k](cols[k], cols[k].row_hi)] = scale(a, 3)
         else:
             for b, k in col_pass:
-                a = x[b, l][col_addr[k](cols[k], cols[k].row_hi)].astype(np.uint64)
+                a = _enter(x[b, l][col_addr[k](cols[k], cols[k].row_hi)].astype(np.uint64), cs, lid)
                 cols[k].phase(a)
                 tmp[b][col_addr[k](cols[k], cols[k].row_lo)] = a
             assert tmp.max() < (1 << 32)
@@ -455,7 +465,7 @@ def _emulate_one_block(x, plan, inverse, sms=1, exchanges=None):
         slots_lo = _slot_of(rt.word_lo, log_n, log_n1)
         for b in (b for g in range(G) for b in range(g, B, G)):
             if inverse:
-                a = x[b, l][slots_lo].astype(np.uint64)
+                a = _enter(x[b, l][slots_lo].astype(np.uint64), cs, lid)
                 if rt.mask_hi:
                     rt.phase(a, buffer())
                     held = rt.word_hi
@@ -471,7 +481,7 @@ def _emulate_one_block(x, plan, inverse, sms=1, exchanges=None):
                     _round(a, ct.tw_lo, ct.mask_lo, q, True)
                 out[b, l][natural(ct.row_hi)] = scale(a, 3)
             else:
-                a = x[b, l][natural(ct.row_hi)].astype(np.uint64)
+                a = _enter(x[b, l][natural(ct.row_hi)].astype(np.uint64), cs, lid)
                 if ct.mask_lo:
                     ct.phase(a, buffer())
                 else:
@@ -583,6 +593,51 @@ def test_one_block_launch_plan(inverse, L, batch, log_n, want):
     assert plan is launch_plan("one_block", inverse, L, batch, log_n, 0, 7, 132)   # kept per shape
     assert launch_plan(TWO_PASS, inverse, L, batch, log_n, 6, 7, 132) == \
         tuple(large_passes(TWO_PASS, inverse, L, batch, log_n, 6, 7, 132))
+
+
+def _flipped(primes, shape, seed):
+    """Residues with one bit in 0..31 flipped per vector: words below 2^32,
+    some at or above q, as a fault campaign leaves them."""
+    x = _residues(primes, shape, seed).astype(np.int64)
+    rng = np.random.default_rng(seed)
+    vec = x.reshape(-1, shape[-1])
+    bits = rng.integers(0, 32, len(vec))
+    bits[:2] = (31, 30)                                # two words certainly at or above q
+    vec[np.arange(len(vec)), rng.integers(0, shape[-1], len(vec))] ^= np.int64(1) << bits
+    return x
+
+
+@pytest.mark.parametrize("bits", [30, 31])
+@pytest.mark.parametrize("form", ["one_block", (TWO_PASS, 4), (CLUSTER, 4), (TWO_PASS, 5)])
+def test_kernels_emulated_on_flipped_words(form, bits):
+    """Inputs with a flipped bit (words up to 2^32, some >= q) in both
+    directions: the kernels reduce each word on entry (enter16), so the lazy
+    butterflies' ranges hold (the emulation asserts them) and the output is
+    the plain versions', which is the transform of the words mod q."""
+    _, plan = _plans(256, bits)
+    sub = plan.take([2, 0])
+    x = _flipped(sub.primes, (3, sub.L, 256), seed=bits)
+    q = np.array(sub.primes, dtype=np.int64)[:, None]
+    assert (x >= q).any() and x.max() < (1 << 32)
+    for inverse, plain in ((False, ntt_fwd_reference), (True, ntt_inv_reference)):
+        want = plain(_t(x), sub).numpy()
+        np.testing.assert_array_equal(want, plain(_t(x % q), sub).numpy())
+        got = (_emulate_one_block(x, sub, inverse) if form == "one_block"
+               else _emulate_large(x, sub, inverse, form[1], form[0]))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_plain_matches_mxu_plan_on_flipped_words():
+    """The reference's transform on words with a flipped bit in 0..29 (the
+    fault campaign's range) is that of the words mod q, as the plain versions'."""
+    ref, plan = _plans(256, 30)
+    x = _flipped(plan.primes, (2, plan.L, 256), seed=5)
+    x &= (1 << 30) - 1                                 # flips in bits 0..29 only
+    xj = jnp.asarray(x.astype(np.uint32))
+    np.testing.assert_array_equal(ntt_fwd_reference(_t(x), plan).numpy(),
+                                  np.asarray(ref.fwd(xj)).astype(np.int64))
+    np.testing.assert_array_equal(ntt_inv_reference(_t(x), plan).numpy(),
+                                  np.asarray(ref.inv(xj)).astype(np.int64))
 
 
 _SPLITS = [(256, 30, 4), (256, 31, 5), (256, 30, 7), (2048, 31, 4), (4096, 31, 5),
