@@ -30,6 +30,20 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
      multiply_relin and rescale twice, a rotation at the lowered level; the
      same seed on the CPU gives identical arrays
   7. one rotation each at N=8192, N=16384 and N=32768, 21+1 limbs
+  7b. BGV at the reference's campaign configuration (bench/northstar.py:61-86:
+     N=16384, 10 x 30-bit limbs + a 31-bit special prime, t of 20 bits,
+     seed 11, messages from default_rng(1)): keygen, encrypt and
+     dot_product_bgv (multiply_relin, mod_switch_to_next, 13 rotate_rows,
+     rotate_columns) decrypting to sum(x*y) mod t in every slot; the same
+     seed on the CPU gives identical keys and arrays for encrypt,
+     multiply_relin, mod_switch_to_next and one rotate_rows
+  7c. BFV at N=16384, 10 + 1 limbs, seed 13 (t of 17 bits: no 16-bit prime is
+     1 mod 2n there): encrypt, multiply_relin (the BEHZ multiply),
+     rotate_rows(1), rotate_columns decrypting to the plaintext results, and
+     identical to a CPU run of the same seed
+  7d. ProtectedBgv on the dot product's context: clean rotate_rows(1) and
+     multiply_relin equal to the plain evaluator with every flag true, one
+     fault per stage firing its detector, ks_out none
   8. the protected evaluator (fhe/protected.py) on the N=4096, N=65536 and
      N=65536 dnum=3 contexts: clean rotate(1) and multiply_relin identical to
      the plain evaluator with every flag true; one fault per stage of
@@ -52,6 +66,15 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
      (3, 28, 65536), at n=4096 in all three forms, at (5, 22, n) and
      (10, 22, n), between which a launch changes from the cluster kernels to
      the two passes, and warm rotations
+ 13. BGV and BFV times: the warm dot product, BFV multiply_relin and
+     rotate_rows (wall, device busy, launches, device time by kernel group,
+     NTT launches by shape), the BEHZ stages alone by torch.profiler, and
+     every kernel form at the shapes the two schemes launch
+
+Phase 3 also holds the kernels at those shapes: the t plans (1, 1, 16384)
+at 20 and 17 bits and (1, 1, 4096) at 16, the BEHZ basis (4, 13, 16384) and
+(3, 13, 16384), the chain (4, 10) and (3, 10), and the BGV keyswitch's
+(10, 11), (1, 10), (2, 1), (2, 10), (2, 9), (9, 10) and (1, 9).
 
 Launch counts are set to 0 just before each path (the protected ones
 included) and read just after; the kernel records carry their sum and the
@@ -70,16 +93,21 @@ import numpy as np
 import torch
 
 from rfhe_tpu_torch.bench import protected_overhead
-from rfhe_tpu_torch.device import (DEVICE_TIMER, card, cuda_ms, device_ms, profiled_us,
-                                   to_numpy_u32)
+from rfhe_tpu_torch.device import (DEVICE_TIMER, card, cuda_ms, device_ms, profile_kernels,
+                                   profiled_us, to_numpy_u32, wall_us)
 from rfhe_tpu_torch.faults import evaluator_campaign
-from rfhe_tpu_torch.fhe import Ciphertext, CkksContext, CkksParams
+from rfhe_tpu_torch.fhe import (BehzPlan, BfvContext, BfvParams, BgvContext, BgvParams,
+                                Ciphertext, CkksContext, CkksParams)
+from rfhe_tpu_torch.fhe.bgv import special_primes
 from rfhe_tpu_torch.fhe.keys import compute_digits
-from rfhe_tpu_torch.fhe.protected import Fault, ProtectedCkks, all_ok
+from rfhe_tpu_torch.fhe.protected import Fault, ProtectedBgv, ProtectedCkks, all_ok
 from rfhe_tpu_torch.fhe.params import make_prime_chain
 from rfhe_tpu_torch.fhe.rns import poly_intt
+from rfhe_tpu_torch.models.dotprod import dot_product_bgv
+from rfhe_tpu_torch.numth import find_ntt_primes
 from rfhe_tpu_torch.ops import ntt_cuda
 from rfhe_tpu_torch.ops.ntt import NttPlan, ntt_fwd_reference, ntt_inv_reference
+from rfhe_tpu_torch.profile_rotation import profile_op
 
 SEAL_ROTATION_US = 14_377.0      # reference: SEAL 4.1 CPU, N=4096, 21 limbs
 SOURCE = "rfhe_tpu_torch/csrc/ntt.cu"
@@ -93,6 +121,16 @@ LARGE_RINGS = (16384, 32768, 65536)
 ONE_BLOCK_RINGS = (256, 512, 1024, 2048, 4096, 8192)
 DNUM = 3
 SEED = 7
+# The reference's real-GPU campaign configuration (bench/northstar.py:61-86):
+# 10 x 30-bit limbs and a 31-bit special prime, t of 20 bits, seed 11,
+# messages from default_rng(1).
+BGV_DOT = dict(n=16384, levels=9, q_bits=30, t_bits=20)
+BGV_SEED = 11
+# BFV at the same ring with seed 13 (bench/ops_devtime.py:108's shape).  Its
+# t_bits=16 has no prime ≡ 1 (mod 2n) at n = 16384 (the reference's
+# BfvParams.make raises there); 17 bits gives t = 65537.
+BFV_RING = dict(n=16384, levels=9, q_bits=30, t_bits=17)
+BFV_SEED = 13
 # Limits on the decrypted slots, (rotation, square) by ring.  The chain's
 # 28-bit scale is the rotation profile's, not a precision setting: the
 # reference's keyswitch takes non-centred digits, whose noise is
@@ -238,7 +276,37 @@ def kernel_cases() -> list:
             (f"n={n} (5, 6) uneven groups", mixed, 5, forms_of(n)[-2:]),
             (f"n={n} 31-bit (3, 3)", NttPlan.make(n, make_prime_chain(n, [31] * 3), "cuda"), 3, splits),
         ]
-    return cases
+    return cases + scheme_kernel_cases()
+
+
+def scheme_kernel_cases() -> list:
+    """The shapes the BGV dot product and BFV at N = 16384 launch: the
+    plaintext-modulus plans (1, 1, n), the BEHZ basis Bsk (4 and 3
+    polynomials of 13 limbs) and the chain Q (4 and 3 of 10), the BGV
+    keyswitch at level 9 and, after the modulus switch, at level 8."""
+    n = BGV_DOT["n"]
+    splits = [None] + forms_of(n)
+    bgv, bfv = BgvParams.make(**BGV_DOT), BfvParams.make(**BFV_RING)
+    chain = NttPlan.make(n, tuple(bgv.moduli) + special_primes(bgv), "cuda")      # 10 + 1
+    sp = len(bgv.moduli)
+    bsk = BehzPlan.make(n, bfv.moduli, bfv.t, bfv.moduli + special_primes(bfv), "cuda").bsk_plan
+    t16 = NttPlan.make(4096, find_ntt_primes(4096, 16, 1), "cuda")
+    return [
+        (f"n={n} (1, 1) BGV t plan, 20-bit", NttPlan.make(n, [bgv.t], "cuda"), 1, splits),
+        (f"n={n} (1, 1) BFV t plan, 17-bit", NttPlan.make(n, [bfv.t], "cuda"), 1, splits),
+        ("n=4096 (1, 1) t plan, 16-bit", t16, 1, forms_of(4096)),
+        (f"n={n} (4, 13) BEHZ Bsk inputs", bsk, 4, splits),
+        (f"n={n} (3, 13) BEHZ Bsk tensor", bsk, 3, splits),
+        (f"n={n} (4, 10) BEHZ Q inputs", chain.slice(sp), 4, splits),
+        (f"n={n} (3, 10) BEHZ Q tensor", chain.slice(sp), 3, splits),
+        (f"n={n} (10, 11) BGV keyswitch digits", chain, 10, splits),
+        (f"n={n} (1, 10) BGV c1", chain.slice(sp), 1, splits),
+        (f"n={n} (1, 9) BGV c1, level 8", chain.slice(sp - 1), 1, splits),
+        (f"n={n} (2, 1) BGV special limb", chain.take([sp]), 2, splits),
+        (f"n={n} (2, 10) BGV mod-down delta", chain.slice(sp), 2, splits),
+        (f"n={n} (2, 9) BGV mod-switch delta", chain.slice(sp - 1), 2, splits),
+        (f"n={n} (9, 10) BGV digits, level 8", chain.take(list(range(sp - 1)) + [sp]), 9, splits),
+    ]
 
 
 def phase_kernels() -> dict:
@@ -453,6 +521,132 @@ def phase_mid_rings() -> dict:
     return out
 
 
+def bgv_messages(ctx) -> tuple:
+    rng = np.random.default_rng(1)
+    return tuple(rng.integers(0, ctx.t, (2, ctx.params.n // 2), dtype=np.uint32) for _ in range(2))
+
+
+def scheme_arrays(ctx, cts: dict) -> dict:
+    """name -> numpy arrays of the ciphertexts `cts` and of the context's
+    public, relinearization and Galois keys."""
+    arrays = {name: ct.to_numpy() + [np.array([ct.correction])] for name, ct in cts.items()}
+    arrays["pk"] = [to_numpy_u32(ctx.pk.b), to_numpy_u32(ctx.pk.a)]
+    arrays["rlk"] = [to_numpy_u32(ctx.rlk.b), to_numpy_u32(ctx.rlk.a)]
+    for g, k in ctx._galois.items():
+        arrays[f"galois {g}"] = [to_numpy_u32(k.b), to_numpy_u32(k.a)]
+    return arrays
+
+
+def bgv_steps(ctx, ct_x, ct_y) -> dict:
+    """The steps of the dot product held against a CPU run: multiply_relin,
+    mod_switch_to_next and the first rotate_rows(1) of the fold."""
+    prod = ctx.multiply_relin(ct_x, ct_y)
+    ms = ctx.mod_switch_to_next(prod)
+    return {"encrypt x": ct_x, "encrypt y": ct_y, "multiply_relin": prod,
+            "mod_switch_to_next": ms, "rotate_rows(1)": ctx.rotate_rows(ms, 1)}
+
+
+def counted(tag: str, what: str, run) -> tuple:
+    """Run `run()` with the launch counts set to 0 just before and read just
+    after; fail unless both directions launched.  Returns (its result,
+    launches, by_kernels, seconds)."""
+    ntt_cuda.KERNELS.reset_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k = ntt_cuda.KERNELS
+    launches, by_kernels = dict(k.launches), dict(k.by_kernels)
+    print(f"[{tag}] {what}: kernel launches {launches}; by the kernels that ran "
+          f"{ {n: c for n, c in by_kernels.items() if c} } ({secs:.2f} s, first call)")
+    if k.fwd_launches == 0 or k.inv_launches == 0:
+        raise RuntimeError(f"{what} did not launch both kernels: {launches}")
+    return out, launches, by_kernels, secs
+
+
+def phase_bgv() -> tuple:
+    """The BGV dot product at the reference's campaign configuration:
+    keygen, encrypt, dot_product_bgv (multiply_relin, mod_switch_to_next,
+    13 rotate_rows and rotate_columns), decrypt equal to Σ x_i·y_i mod t in
+    every slot; then the same seed on the CPU gives identical keys and
+    arrays for encrypt, multiply_relin, mod_switch_to_next and one
+    rotate_rows."""
+    params = BgvParams.make(**BGV_DOT)
+
+    def run():
+        ctx = BgvContext(params, seed=BGV_SEED, device="cuda")
+        m1, m2 = bgv_messages(ctx)
+        ct_x, ct_y = ctx.encrypt(ctx.encode(m1)), ctx.encrypt(ctx.encode(m2))
+        return ctx, ct_x, ct_y, ctx.decrypt_decode(dot_product_bgv(ctx, ct_x, ct_y)), m1, m2
+
+    (ctx, ct_x, ct_y, got, m1, m2), launches, by_kernels, _ = counted(
+        "bgv", f"BGV N={params.n}, {params.L}+1 limbs, t={params.t}: keygen, encrypt, "
+        f"dot_product_bgv, decrypt", run)
+    want = int((m1.astype(object) * m2.astype(object)).sum()) % ctx.t
+    exact = bool((got == want).all())
+    print(f"[bgv] decryption equals sum(x*y) mod t = {want} in all {got.size} slots: {exact}")
+    if not exact:
+        raise RuntimeError("the BGV dot product does not decrypt to sum(x*y) mod t")
+    arrays = scheme_arrays(ctx, bgv_steps(ctx, ct_x, ct_y))
+    t0 = time.perf_counter()
+    cpu = BgvContext(params, seed=BGV_SEED, device="cpu")
+    c1, c2 = bgv_messages(cpu)
+    cpu_arrays = scheme_arrays(cpu, bgv_steps(cpu, cpu.encrypt(cpu.encode(c1)),
+                                              cpu.encrypt(cpu.encode(c2))))
+    arrays = {k: v for k, v in arrays.items() if k in cpu_arrays}      # the CPU drew one Galois key
+    count = same_arrays(arrays, cpu_arrays, f"BGV N={params.n} cuda vs cpu")
+    print(f"[bgv] {count} arrays ({', '.join(arrays)}) identical on cuda and cpu "
+          f"(cpu run {time.perf_counter() - t0:.1f} s)")
+    return (ctx, ct_x, ct_y), launches, by_kernels
+
+
+def bfv_steps(ctx, m1, m2) -> dict:
+    ct1, ct2 = ctx.encrypt(ctx.encode(m1)), ctx.encrypt(ctx.encode(m2))
+    return {"encrypt 1": ct1, "encrypt 2": ct2, "multiply_relin": ctx.multiply_relin(ct1, ct2),
+            "rotate_rows(1)": ctx.rotate_rows(ct1, 1), "rotate_columns": ctx.rotate_columns(ct1)}
+
+
+def phase_bfv() -> tuple:
+    """BFV at N = 16384, 10 + 1 limbs: encrypt, multiply_relin (the full
+    BEHZ multiply), rotate_rows(1), rotate_columns, each decrypting to the
+    plaintext result; the same seed on the CPU gives identical keys and
+    arrays."""
+    params = BfvParams.make(**BFV_RING)
+
+    def run():
+        ctx = BfvContext(params, seed=BFV_SEED, device="cuda")
+        m1, m2 = bgv_messages(ctx)
+        return ctx, m1, m2, bfv_steps(ctx, m1, m2)
+
+    (ctx, m1, m2, cts), launches, by_kernels, _ = counted(
+        "bfv", f"BFV N={params.n}, {params.L}+1 limbs, t={params.t}: keygen, encrypt, "
+        f"multiply_relin, rotate_rows(1), rotate_columns", run)
+    m1, m2 = m1.astype(np.int64), m2.astype(np.int64)
+    want = {"encrypt 1": m1, "multiply_relin": m1 * m2 % ctx.t,
+            "rotate_rows(1)": np.roll(m1, -1, axis=1), "rotate_columns": m1[::-1]}
+    for name, m in want.items():
+        ok = np.array_equal(ctx.decrypt_decode(cts[name]), m)
+        print(f"[bfv] {name} decrypts to the plaintext result: {ok}")
+        if not ok:
+            raise RuntimeError(f"BFV {name} decrypts wrong")
+    arrays = scheme_arrays(ctx, cts)
+    t0 = time.perf_counter()
+    cpu = BfvContext(params, seed=BFV_SEED, device="cpu")
+    cpu_arrays = scheme_arrays(cpu, bfv_steps(cpu, *bgv_messages(cpu)))
+    count = same_arrays(arrays, cpu_arrays, f"BFV N={params.n} cuda vs cpu")
+    print(f"[bfv] {count} arrays ({', '.join(arrays)}) identical on cuda and cpu "
+          f"(cpu run {time.perf_counter() - t0:.1f} s)")
+    return (ctx, cts["encrypt 1"], cts["encrypt 2"]), launches, by_kernels
+
+
+def phase_protected_bgv(bgv: tuple) -> tuple:
+    """ProtectedBgv on the dot product's context and its x ciphertext."""
+    ctx, ct_x, _ = bgv
+    _, _, launches, by_kernels = drive_protected(
+        "protected", f"BGV N={ctx.params.n} dot-product context", ctx, ct_x)
+    return launches, by_kernels
+
+
 def phase_counts(ctxs: dict) -> dict:
     """Launches of both kernels in one warm rotation, per context."""
     cts = {}
@@ -501,19 +695,23 @@ def as_numpy(runs: dict) -> dict:
             for name, (out, flags) in runs.items()}
 
 
-def drive_protected(tag: str, what: str, ctx: CkksContext) -> tuple:
-    """The protected evaluator on one path of the card: clean ops identical to
-    the plain evaluator's with every flag true, each fault stage firing its
-    detector, ks_out firing none.  The launch counts are set to 0 just before
-    the protected ops and read just after.  Returns (ct, runs as numpy,
-    launches, by_kernels)."""
+def drive_protected(tag: str, what: str, ctx, ct=None) -> tuple:
+    """The protected evaluator on one path of the card (ProtectedCkks, or
+    ProtectedBgv over a BgvContext, whose rotate is rotate_rows): clean ops
+    identical to the plain evaluator's with every flag true, each fault stage
+    firing its detector, ks_out firing none.  The launch counts are set to 0
+    just before the protected ops and read just after.  Returns (ct, runs as
+    numpy, launches, by_kernels)."""
     n = ctx.params.n
-    ct = ctx.encrypt(*ctx.encode(np.random.default_rng(1).uniform(-1, 1, n // 2) + 0j))
-    plain = {"rotate": ctx.rotate(ct, 1), "multiply_relin": ctx.multiply_relin(ct, ct)}
+    bgv = isinstance(ctx, BgvContext)
+    if ct is None:
+        ct = ctx.encrypt(*ctx.encode(np.random.default_rng(1).uniform(-1, 1, n // 2) + 0j))
+    rotate = ctx.rotate_rows if bgv else ctx.rotate
+    plain = {"rotate": rotate(ct, 1), "multiply_relin": ctx.multiply_relin(ct, ct)}
     torch.cuda.synchronize()
     ntt_cuda.KERNELS.reset_counts()
     t0 = time.perf_counter()
-    prot = ProtectedCkks(ctx)
+    prot = ProtectedBgv(ctx) if bgv else ProtectedCkks(ctx)
     runs = protected_runs(prot, ct)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -743,11 +941,84 @@ def phase_times(ctxs: dict, cts: dict, c: str) -> dict:
     return times
 
 
-def kernel_records(err: dict, launches: dict, times: dict, protected: dict) -> list:
+def ntt_shapes(fn) -> dict:
+    """NTT launches of one warm call of `fn`, by (form, batch, L, n)."""
+    fn()
+    torch.cuda.synchronize()
+    ntt_cuda.KERNELS.reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    return dict(ntt_cuda.KERNELS.by_shape)
+
+
+def report_op(c: str, what: str, fn, reps: int) -> dict:
+    """Wall (each call waited for), device busy, launches, the device time by
+    kernel group and the NTT launches by shape of one warm op."""
+    wall = wall_us(fn, reps)
+    totals, rows = profile_op(fn, reps)
+    shapes = ntt_shapes(fn)
+    print(f"[scheme] {c}: {what}: wall {wall:.1f} us, device busy {totals['device_us']:.1f} us "
+          f"({100 * totals['device_us'] / wall:.1f}% of wall), {totals['launches']:.1f} device "
+          f"launches, host enqueue {totals['enqueue_us']:.1f} us, SM clock {totals['sm_mhz']} MHz")
+    for name, (us, count) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
+        print(f"[scheme]   {what}: {name:58s} {us:9.1f} us {100 * us / totals['device_us']:5.1f}% "
+              f"{count:6.1f} launches")
+    print(f"[scheme]   {what}: NTT launches by (form, batch, L, n): "
+          + ", ".join(f"{k}: {v}" for k, v in sorted(shapes.items())))
+    return {"wall_us": wall, **totals, "rows": rows, "ntt_shapes": shapes}
+
+
+def phase_scheme_times(c: str, bgv: tuple, bfv: tuple) -> dict:
+    """The warm BGV dot product, BFV multiply_relin and rotate_rows (wall,
+    device, launches, where the device time goes), the BEHZ stages alone by
+    torch.profiler, and each NTT kernel form at every shape the two
+    schemes launch.  Returns the kernel times for the records."""
+    ctx, ct_x, ct_y = bgv
+    report_op(c, "BGV dot product N=16384", lambda: dot_product_bgv(ctx, ct_x, ct_y), 3)
+    bctx, ct1, ct2 = bfv
+    mul = report_op(c, "BFV multiply_relin N=16384", lambda: bctx.multiply_relin(ct1, ct2), 5)
+    report_op(c, "BFV rotate_rows(1) N=16384", lambda: bctx.rotate_rows(ct1, 1), 5)
+    # the BEHZ stages of one multiply, each alone: kernel time by the profiler
+    bp, plan = bctx.behz(ct1.level), bctx.ctx.plan_at(ct1.level)
+    a0, a1, b0, b1 = ct1.c[0].data, ct1.c[1].data, ct2.c[0].data, ct2.c[1].data
+    coeff = plan.inv(torch.stack([a0, a1, b0, b1]))
+    ext = bp.extend_to_bsk(coeff)
+    d_q = plan.fwd(coeff[:3].contiguous())
+    td_b = bp.bsk_plan.inv(bp.bsk_plan.fwd(ext)[:3].contiguous())
+    w = bp.rns_floor(plan.inv(d_q), td_b)
+    stages = {
+        "multiply (whole BEHZ)": lambda: bctx._multiply_impl(a0, a1, b0, b1, bp),
+        "inverse NTT Q (4, 10)": lambda: plan.inv(torch.stack([a0, a1, b0, b1])),
+        "extend_to_bsk (4, 10 -> 13)": lambda: bp.extend_to_bsk(coeff),
+        "forward NTT Bsk (4, 13)": lambda: bp.bsk_plan.fwd(ext),
+        "inverse NTT Bsk (3, 13)": lambda: bp.bsk_plan.inv(td_b),
+        "rns_floor (3, 10 -> 13)": lambda: bp.rns_floor(d_q, td_b),
+        "conv_sk (3, 13 -> 10)": lambda: bp.conv_sk(w),
+        "multiply + relinearize": lambda: bctx.relinearize(bctx.multiply(ct1, ct2)),
+    }
+    whole = None
+    for name, fn in stages.items():
+        us, count = profile_kernels(fn, 5)
+        whole = whole or us
+        print(f"[behz] {c}: {name}: {us:.1f} us of kernel time (torch.profiler), {count:.0f} "
+              f"device launches ({100 * us / whole:.1f}% of the whole multiply)")
+    print(f"[behz] {c}: multiply_relin device busy {mul['device_us']:.1f} us (profiler)")
+    times = {}
+    n = BGV_DOT["n"]
+    for name, plan, batch, _ in scheme_kernel_cases():
+        forms = forms_of(plan.n)
+        times[name] = time_forms(c, plan, batch, forms if plan.n == n else [0])
+    return times
+
+
+def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
+                   scheme: dict) -> list:
     """One record per kernel form at its path's keyswitch shape, in the form
     that shape takes by itself, with every other shape and form timed in this
     run under `other_shapes`.  `ms` is the device timer's reading, `paced_ms`
-    the host-paced one."""
+    the host-paced one.  `launches` counts every counted path;
+    `launches_protected` and `launches_bgv_bfv` are the shares of the
+    protected paths and campaigns and of the BGV, BFV and ProtectedBgv paths."""
     records = []
     for d in ("fwd", "inv"):
         for large, key in (("", "4096"), ("_large", "65536")):
@@ -758,6 +1029,7 @@ def kernel_records(err: dict, launches: dict, times: dict, protected: dict) -> l
             records.append({"name": f"ntt_{d}{large}", "route": "cuda", "source": SOURCE,
                             "replaces": REPLACES[d], "launches": launches[d + large],
                             "launches_protected": protected[d + large],
+                            "launches_bgv_bfv": scheme[d + large],
                             "max_abs_err": err[d + large], "ms": head["ms"],
                             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                             "bound_by": head["bound_by"], "library_ms": None,
@@ -785,13 +1057,21 @@ def main() -> None:
         ctxs[f"N={n}"] = ctx
         for form, count in ring_launches.items():
             launches[form] += count
+    # BGV, BFV and ProtectedBgv at N = 16384
+    scheme = dict.fromkeys(ntt_cuda.FORMS, 0)
+    bgv, bgv_launches, _ = phase_bgv()
+    bfv, bfv_launches, _ = phase_bfv()
+    pbgv_launches, _ = phase_protected_bgv(bgv)
+    for path in (bgv_launches, bfv_launches, pbgv_launches):
+        for form, count in path.items():
+            scheme[form] += count
     protected, prot_kernels = phase_protected(ctxs)
     for form, count in phase_campaign().items():
         protected[form] += count
-    for form, count in protected.items():
-        launches[form] += count
+    for form in launches:
+        launches[form] += protected[form] + scheme[form]
     print(f"[main] kernel launches over all counted paths: {launches}, of which on the protected "
-          f"paths and the campaigns {protected}")
+          f"CKKS paths and the campaigns {protected}, on the BGV, BFV and ProtectedBgv paths {scheme}")
     print(f"[main] on the N=4096 and the two N=65536 paths, by the kernels that ran: {by_kernels}; "
           f"protected: {prot_kernels}")
     if min(launches.values()) == 0 or min(by_kernels.values()) == 0:
@@ -799,7 +1079,8 @@ def main() -> None:
     cts = phase_counts(ctxs)
     phase_overheads(c)
     times = phase_times(ctxs, cts, c)
-    print(json.dumps({"kernels": kernel_records(err, launches, times, protected)}))
+    times.update(phase_scheme_times(c, bgv, bfv))
+    print(json.dumps({"kernels": kernel_records(err, launches, times, protected, scheme)}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

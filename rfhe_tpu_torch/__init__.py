@@ -9,8 +9,11 @@ PyTorch versions on the CPU (ops/ntt.py).
 Layer map:
   numth      host-side number theory (primes, roots, Shoup/CRT constants)
   device     numpy uint32 <-> int64 tensor boundary, device checks
-  ops        modular arithmetic, NTT plan + CUDA kernels, CRT to 64-bit words
-  fhe        CKKS: parameters, RNS polynomials, keys, evaluator
+  ops        modular arithmetic, NTT plan + CUDA kernels, CRT to 64-bit words,
+             RNS base conversion
+  fhe        CKKS, BGV and BFV: parameters, RNS polynomials, keys, evaluators,
+             the protected evaluators, serialization
+  models     the encrypted dot product
 
 This package imports torch and numpy, never jax.
 """

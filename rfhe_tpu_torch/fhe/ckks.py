@@ -20,7 +20,7 @@ import torch
 from ..device import to_numpy_u32, to_torch
 from ..numth import crt_constants
 from ..ops.crt64 import Crt64Plan, crt_to_words, words_to_signed
-from ..ops.modarith import add_mod, mont_mul
+from ..ops.modarith import add_mod, mont_mul, sub_mod
 from .keys import (
     KeyGen, KeySwitchKey, PublicKey, SecretKey, _digit_groups,
     _rns_from_signed, _sample_gaussian, _sample_ternary, keyswitch,
@@ -89,10 +89,49 @@ def rns_to_signed(data: np.ndarray, moduli) -> np.ndarray:
 # context & ciphertext
 # ---------------------------------------------------------------------------
 
+def encrypt_public(ctx: RnsContext, pk: PublicKey, rng: np.random.Generator,
+                   m: torch.Tensor, sigma: float, noise_factor: int = 1
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(c0, c1) = (pk.b·u + NTT(e0 + m), pk.a·u + NTT(e1)) at the level of
+    the coefficient-domain m (level+1, N), drawing u, e0, e1 from `rng`
+    in the reference's order, each gaussian scaled by `noise_factor` (t
+    in BGV).  The encryption of every scheme's context."""
+    lvl = m.shape[0] - 1
+    n = ctx.n
+    moduli = ctx.moduli[:lvl + 1]
+    u = _rns_from_signed(_sample_ternary(rng, n), moduli)
+    e0, e1 = (_rns_from_signed(noise_factor * _sample_gaussian(rng, n, sigma), moduli)
+              for _ in range(2))
+    plan = ctx.plan_at(lvl)
+    q, rinv = plan.qb(1), plan.rinvb(1)
+    u, e0, e1 = (to_torch(v, ctx.device) for v in (u, e0, e1))
+    u_ntt, m0_ntt, m1_ntt = plan.fwd(torch.stack((u, add_mod(e0, m, q), e1)))
+    c0 = add_mod(mont_mul(pk.b[:lvl + 1], u_ntt, q, rinv), m0_ntt, q)
+    c1 = add_mod(mont_mul(pk.a[:lvl + 1], u_ntt, q, rinv), m1_ntt, q)
+    return c0, c1
+
+
+def dot_secret(ctx: RnsContext, sk: SecretKey, ct: "Ciphertext") -> torch.Tensor:
+    """c0 + c1·s (+ c2·s²), NTT domain, at the ciphertext's level."""
+    lvl = ct.level
+    plan = ctx.plan_at(lvl)
+    q, rinv = plan.qb(1), plan.rinvb(1)
+    s = sk.s_ntt[:lvl + 1]
+    acc = ct.c[0].data
+    spow = s
+    for comp in ct.c[1:]:
+        acc = add_mod(acc, mont_mul(comp.data, spow, q, rinv), q)
+        spow = mont_mul(spow, s, q, rinv)
+    return acc
+
+
 @dataclass
 class Ciphertext:
     c: List[RnsPoly]          # 2 (or 3 before relinearization), NTT domain
     scale: float
+    # BGV only: the factor decryption multiplies by (mod t); a modulus
+    # switch by q_k scales the message by q_k^{-1} mod t
+    correction: int = 1
 
     @property
     def level(self) -> int:
@@ -223,38 +262,28 @@ class CkksContext:
     def encrypt(self, pt: RnsPoly, scale: float) -> Ciphertext:
         """Public-key encryption; draws u, e0, e1 from the context's rng in
         the reference's order."""
-        lvl = pt.level
-        n = self.params.n
-        moduli = self.params.moduli[:lvl + 1]
-        u = _rns_from_signed(_sample_ternary(self.rng, n), moduli)
-        e0 = _rns_from_signed(_sample_gaussian(self.rng, n, self.params.sigma), moduli)
-        e1 = _rns_from_signed(_sample_gaussian(self.rng, n, self.params.sigma), moduli)
-        plan = self.ctx.plan_at(lvl)
-        q, rinv = plan.qb(1), plan.rinvb(1)
-        u, e0, e1 = (to_torch(v, self.device) for v in (u, e0, e1))
-        u_ntt, m0_ntt, m1_ntt = plan.fwd(torch.stack((u, add_mod(e0, pt.data, q), e1)))
-        c0 = add_mod(mont_mul(self.pk.b[:lvl + 1], u_ntt, q, rinv), m0_ntt, q)
-        c1 = add_mod(mont_mul(self.pk.a[:lvl + 1], u_ntt, q, rinv), m1_ntt, q)
+        c0, c1 = encrypt_public(self.ctx, self.pk, self.rng, pt.data, self.params.sigma)
         return Ciphertext([RnsPoly(c0, True), RnsPoly(c1, True)], scale)
 
     def encrypt_seeded(self, pt: RnsPoly, scale: float, seed: int) -> Ciphertext:
-        raise NotImplementedError("encrypt_seeded (SHAKE-256 expansion) is not ported yet")
-
-    def _dot_secret(self, ct: Ciphertext) -> torch.Tensor:
-        """c0 + c1·s (+ c2·s²), NTT domain."""
-        lvl = ct.level
+        """Symmetric-key encryption whose c1 is expanded from `seed` by the
+        SHAKE-256 stream of the seeded wire form (`serialize.sample_uniform_a`):
+        c1 = a (uniform, NTT domain), c0 = NTT(m + e) − a·s, so the plain
+        decryption recovers m + e.  Draws e from the context's rng
+        (`rfhe_tpu.fhe.ckks.CkksContext.encrypt_seeded`)."""
+        from .serialize import sample_uniform_a
+        lvl = pt.level
+        moduli = self.params.moduli[:lvl + 1]
+        a = to_torch(sample_uniform_a(seed, (lvl + 1, self.params.n), moduli), self.device)
+        e = _rns_from_signed(_sample_gaussian(self.rng, self.params.n, self.params.sigma), moduli)
         plan = self.ctx.plan_at(lvl)
         q, rinv = plan.qb(1), plan.rinvb(1)
-        s = self.sk.s_ntt[:lvl + 1]
-        acc = ct.c[0].data
-        spow = s
-        for comp in ct.c[1:]:
-            acc = add_mod(acc, mont_mul(comp.data, spow, q, rinv), q)
-            spow = mont_mul(spow, s, q, rinv)
-        return acc
+        m_ntt = plan.fwd(add_mod(to_torch(e, self.device), pt.data, q))
+        c0 = sub_mod(m_ntt, mont_mul(a, self.sk.s_ntt[:lvl + 1], q, rinv), q)
+        return Ciphertext([RnsPoly(c0, True), RnsPoly(a, True)], scale)
 
     def decrypt(self, ct: Ciphertext) -> RnsPoly:
-        return RnsPoly(self.ctx.plan_at(ct.level).inv(self._dot_secret(ct)), False)
+        return RnsPoly(self.ctx.plan_at(ct.level).inv(dot_secret(self.ctx, self.sk, ct)), False)
 
     def decrypt_words(self, ct: Ciphertext) -> Tuple[torch.Tensor, torch.Tensor]:
         """Decrypt and CRT-reconstruct on the device: the plaintext

@@ -80,12 +80,15 @@ class KeyGen:
         s_rns = to_torch(_rns_from_signed(s, self.ctx.moduli), self.ctx.device)
         return SecretKey(s_ntt=self.ctx.plan.fwd(s_rns), s_coeff=s)
 
-    def gen_public(self, sk: SecretKey, rng: np.random.Generator) -> PublicKey:
+    def gen_public(self, sk: SecretKey, rng: np.random.Generator,
+                   noise_factor: int = 1) -> PublicKey:
+        """b = e − a·s over the ciphertext primes, the gaussian e scaled by
+        `noise_factor` (t for the BGV key, `bgv.py:_gen_public_bgv`)."""
         L = self.n_ct_limbs
         dev = self.ctx.device
         moduli = self.ctx.moduli[:L]
         a = to_torch(_sample_uniform_rns(rng, moduli, self.ctx.n), dev)
-        e = _rns_from_signed(_sample_gaussian(rng, self.ctx.n, self.sigma), moduli)
+        e = _rns_from_signed(noise_factor * _sample_gaussian(rng, self.ctx.n, self.sigma), moduli)
         plan = self.ctx.plan.slice(L)
         e_ntt = plan.fwd(to_torch(e, dev))
         q, rinv = plan.qb(1), plan.rinvb(1)
@@ -93,12 +96,13 @@ class KeyGen:
         return PublicKey(b=b, a=a)
 
     def gen_keyswitch(self, sk: SecretKey, s_prime_ntt: torch.Tensor,
-                      rng: np.random.Generator, dnum: Optional[int] = None
-                      ) -> KeySwitchKey:
+                      rng: np.random.Generator, noise_factor: int = 1,
+                      dnum: Optional[int] = None) -> KeySwitchKey:
         """Key switching s' -> s (`rfhe_tpu.fhe.keys.KeyGen.gen_keyswitch`):
-        one key per digit group, all the a's drawn first, then all the e's.
-        dnum=None means ⌈L / n_special⌉ groups here, which is per-limb
-        digits with one special prime."""
+        one key per digit group, all the a's drawn first, then all the e's,
+        each gaussian scaled by `noise_factor` (t for BGV keys).  dnum=None
+        means ⌈L / n_special⌉ groups here, which is per-limb digits with one
+        special prime."""
         ctx = self.ctx
         L = self.n_ct_limbs
         n_sp = len(ctx.moduli) - L
@@ -108,7 +112,7 @@ class KeyGen:
         P_sp = math.prod(ctx.moduli[L:])
         a = np.stack([_sample_uniform_rns(rng, ctx.moduli, ctx.n) for _ in groups])
         e = np.stack([
-            _rns_from_signed(_sample_gaussian(rng, ctx.n, self.sigma), ctx.moduli)
+            _rns_from_signed(noise_factor * _sample_gaussian(rng, ctx.n, self.sigma), ctx.moduli)
             for _ in groups
         ])
         plan = ctx.plan
@@ -246,9 +250,8 @@ def keyswitch(d_coeff: torch.Tensor, ksk: KeySwitchKey, level: int,
     Returns (c0_delta, c1_delta) in the NTT domain over limbs 0..level
     (`rfhe_tpu.fhe.keys.keyswitch`): digits, one batched NTT, the dyadic MAC
     against the key, the digit sum, then mod-down by the special primes, last
-    to first, both accumulators in one batched `drop_limb` each."""
-    if t is not None:
-        raise NotImplementedError("BGV keyswitch (t) is not ported yet")
+    to first, both accumulators in one batched `drop_limb` each (t-aware in
+    BGV: the mod-down keeps the message mod t)."""
     L = n_ct_limbs
     sp_idx = list(range(L, len(ctx.moduli)))
     active = level + 1
@@ -264,7 +267,7 @@ def keyswitch(d_coeff: torch.Tensor, ksk: KeySwitchKey, level: int,
         acc.append(_sum_digits(mont_mul(dig_ntt, kk, q, rinv), q))
     out = torch.stack(acc)
     for k_i in range(len(sp_idx) - 1, -1, -1):
-        out = drop_limb(out, sp_idx[k_i], list(range(active)) + sp_idx[:k_i], ctx)
+        out = drop_limb(out, sp_idx[k_i], list(range(active)) + sp_idx[:k_i], ctx, t)
     return out[0], out[1]
 
 

@@ -1,6 +1,6 @@
-"""CKKS parameter sets: copy of `rfhe_tpu/fhe/params.py` (`make_prime_chain`,
-`CkksParams`), so the chains are the same primes in the same order.  BGV and
-BFV parameters are not ported yet."""
+"""Scheme parameter sets: copy of `rfhe_tpu/fhe/params.py`
+(`make_prime_chain`, `CkksParams`, `BfvParams`, `BgvParams`), so the chains
+and plaintext moduli are the same primes in the same order."""
 from __future__ import annotations
 
 from collections import Counter
@@ -61,3 +61,33 @@ class CkksParams:
     @property
     def L(self) -> int:
         return len(self.moduli)
+
+
+@dataclass(frozen=True)
+class _IntegerParams:
+    """Chain of levels+1 primes of q_bits and a plaintext prime t ≡ 1 (mod
+    2n) of t_bits, for batching (`rfhe_tpu.fhe.params.BgvParams/BfvParams`)."""
+
+    n: int
+    moduli: Tuple[int, ...]
+    t: int
+    sigma: float = 3.2
+
+    @classmethod
+    def make(cls, n: int = 4096, levels: int = 2, q_bits: int = 30, t_bits: int = 16):
+        moduli = make_prime_chain(n, [q_bits] * (levels + 1))
+        t = find_ntt_primes(n, t_bits, 1)[0]
+        return cls(n=n, moduli=tuple(moduli), t=t)
+
+    @property
+    def L(self) -> int:
+        return len(self.moduli)
+
+
+class BgvParams(_IntegerParams):
+    """BGV: the message rides the low bits, noise is a multiple of t."""
+
+
+class BfvParams(_IntegerParams):
+    """BFV (scale-invariant): the message rides the high bits as Δ·m,
+    Δ = ⌊Q/t⌋."""

@@ -1,11 +1,10 @@
-"""Protected CKKS evaluator: ABFT detectors on the keyswitch the plain
-evaluator runs.
+"""Protected CKKS and BGV evaluators: ABFT detectors on the keyswitch the
+plain evaluators run.
 
-Counterpart of `rfhe_tpu/fhe/protected.py` (CKKS; the BGV form waits for the
-port's BGV context).  Every linear span of the keyswitch is verified by
-modular dots against probes built once through the span's transpose
-(`protect/ntt_guard.py`), so a check costs O(n) reductions beside the
-transforms it covers:
+Counterpart of `rfhe_tpu/fhe/protected.py`.  Every linear span of the
+keyswitch is verified by modular dots against probes built once through the
+span's transpose (`protect/ntt_guard.py`), so a check costs O(n) reductions
+beside the transforms it covers:
 
   permute    <φ, c0∘σ> == <φ∘σ⁻¹, c0>: the probe is permuted at build time
   intt       <φ, d> == <(M⁻ᵀφ)∘σ⁻¹, c1>: the c1 permutation and the inverse
@@ -20,22 +19,26 @@ transforms it covers:
   md_intt / md_lift / md_proj / md_range
              the mod-down by each special prime: the guard on the special
              limb's inverse NTT, the centered lift's exact checksum
-             (Σ δ_i == S − q_src·n_over mod q_i), the composite projection
-             <φ, out> == q_src⁻¹·(<φ, acc> − <Mᵀφ, δ>) and out ∈ [0, q)
+             (Σ δ_i == S − q_src·n_over mod q_i; in BGV also minus
+             q_src·(S_r − t·n_r_over) for the t-correction r), the
+             composite projection <φ, out> == q_src⁻¹·(<φ, acc> − <Mᵀφ, δ>)
+             and out ∈ [0, q)
   dyadic     the tensor product's fold check and range window
              (`protect/checks.mont_mul_checked`)
 
-rotate / multiply_relin return the plain evaluator's arrays bit for bit and
-a dict of per-phase bool flags, keyed as the reference's (`md` for the last
-special prime's mod-down, `md1`, `md2`, … for the others).  A `Fault` flips
-one bit of a named intermediate; the flip campaign
-(`faults/evaluator_campaign.py`) sweeps them.  PyTorch runs eagerly, so the
-reference's jit cache has no counterpart; the probe cache does.
+rotate (rotate_rows in BGV) / multiply_relin return the plain evaluator's
+arrays bit for bit and a dict of per-phase bool flags, keyed as the
+reference's (`md` for the last special prime's mod-down, `md1`, `md2`, …
+for the others).  A `Fault` flips one bit of a named intermediate; the flip
+campaign (`faults/evaluator_campaign.py`) sweeps them.  PyTorch runs
+eagerly, so the reference's jit cache has no counterpart; the probe cache
+does.
 
 Faulted words may lie at or above q.  Every consumer of a faulted word here
 reduces it exactly mod q (the NTT kernels on entry, the dots' products, the
 exact sums, the Shoup rescale), as the reference's do, so outputs and flags
-match the reference's under every fault stage (tests/test_torch_protected.py).
+match the reference's under every fault stage (tests/test_torch_protected.py,
+tests/test_torch_protected_bgv.py).
 """
 from __future__ import annotations
 
@@ -52,7 +55,7 @@ from ..protect.checks import mont_mul_checked
 from ..protect.ntt_guard import NttGuard
 from .ckks import Ciphertext, CkksContext
 from .keys import _digit_groups, _sum_digits, compute_digits
-from .rns import RnsPoly, lift_to_limbs, limb_plan
+from .rns import RnsPoly, bgv_lift_residue, bgv_lift_shift, lift_to_limbs, limb_plan
 
 
 @dataclass(frozen=True)
@@ -108,6 +111,8 @@ class ProtectedCkks:
     #: detector families; a subset via `checks=` for ablation
     ALL_CHECKS = frozenset({"permute", "intt", "baseconv", "ks_core", "md_intt", "md_lift",
                             "md_proj", "md_range", "dyadic"})
+    #: t of the t-aware mod-down (BGV); None in CKKS
+    _ks_t: Optional[int] = None
 
     def __init__(self, ckks: CkksContext, checks=None):
         self.ckks = ckks
@@ -223,19 +228,19 @@ class ProtectedCkks:
         for k_i in range(len(sp_idx) - 1, -1, -1):
             keep = list(range(active)) + sp_idx[:k_i]
             acc = self._drop_limb_protected(acc, sp_idx[k_i], keep, flags,
-                                            f"md{k_i}" if k_i else "md")
+                                            f"md{k_i}" if k_i else "md", self._ks_t)
         if fault is not None and fault.stage == "ks_out":
             acc = torch.stack((_flip2(acc[0], fault.limb, fault.idx, fault.bit), acc[1]))
         return acc[0], acc[1]
 
     def _drop_limb_protected(self, data: torch.Tensor, src_k: int, keep, flags: Dict,
                              tag: str, t: Optional[int] = None) -> torch.Tensor:
-        """`rns.drop_limb` (CKKS) with the guard on the special limb's inverse
-        NTT, the centered lift's checksum and the composite rescale
-        projection; data (..., nk+1, N).  The lift checksum is vectorized over
-        the kept limbs (the reference loops over them, which jit fuses)."""
-        if t is not None:
-            raise NotImplementedError("the BGV (t) mod-down is not ported yet")
+        """`rns.drop_limb` with the guard on the special limb's inverse NTT,
+        the centered lift's checksum and the composite rescale projection;
+        data (..., nk+1, N).  t given (BGV): δ also takes the t-correction
+        q_src·[r]_c, and the checksum tracks both exact sums
+        (`protected.py:338-385`).  The lift checksum is vectorized over the
+        kept limbs (the reference loops over them, which jit fuses)."""
         ctx = self.ckks.ctx
         nk = len(keep)
         src_in = data[..., nk:nk + 1, :].contiguous()
@@ -257,9 +262,19 @@ class ProtectedCkks:
             n_over = (ck > q_src // 2).sum(dim=-1, keepdim=True)
             corr = qk_mod * (n_over % q_keep) % q_keep
             want = sub_mod(s % q_keep, corr, q_keep)
+        q_lo = q_keep[:, None]
+        if t is not None:
+            r = bgv_lift_residue(ck, q_src, t)
+            delta = sub_mod(delta, bgv_lift_shift(r, src_k, keep, t, ctx), q_lo)
+            if self._on("md_lift"):
+                # − q_src·(S_r − t·n_r_over), S_r the exact sum of r
+                s_r = r.sum(dim=-1, keepdim=True) % q_keep
+                n_r = (r > t // 2).sum(dim=-1, keepdim=True) % q_keep
+                s_rc = sub_mod(s_r, t % q_keep * n_r % q_keep, q_keep)
+                want = sub_mod(want, qk_mod * s_rc % q_keep, q_keep)
+        if self._on("md_lift"):
             flags[f"{tag}_lift"] = sum_mod(delta, q_keep, axis=-1) == want
         delta_ntt = keep_plan.fwd(delta)
-        q_lo = q_keep[:, None]
         num = sub_mod(data[..., :nk, :], delta_ntt, q_lo)
         out = mul_mod_shoup(num, inv_k[:, None], inv_k_s[:, None], q_lo)
         if self._on("md_proj"):
@@ -298,7 +313,8 @@ class ProtectedCkks:
             flags["intt"] = g_act.dot(g_act.phi, d) == g_act.dot(vi_pi, c1)
         k0, k1 = self._keyswitch_protected(d, level, ksk.b, ksk.a, probe, flags, fault)
         c0_out = add_mod(c0g, k0, plan.qb(1))
-        return Ciphertext([RnsPoly(c0_out, True), RnsPoly(k1, True)], ct.scale), flags
+        return Ciphertext([RnsPoly(c0_out, True), RnsPoly(k1, True)], ct.scale,
+                          ct.correction), flags
 
     def apply_galois(self, ct: Ciphertext, g: int,
                      fault: Optional[Fault] = None) -> Tuple[Ciphertext, Dict]:
@@ -313,7 +329,7 @@ class ProtectedCkks:
         return self.apply_galois(ct, self.ckks.rotation_galois_element(r), fault)
 
     def _mul_relin_impl(self, ac, bc, kb, ka, probe: KsProbe, level: int, scale,
-                        fault: Optional[Fault]):
+                        fault: Optional[Fault], correction: int = 1):
         """Tensor product (checked dyadic products) + protected relin.
         ac/bc: [c0, c1] data tensors; kb/ka: the whole relin key."""
         plan = self.ckks.ctx.plan.slice(level + 1)
@@ -337,13 +353,29 @@ class ProtectedCkks:
             flags["intt"] = self.guard.slice(level + 1).check_inv(d2, d2c)
         k0, k1 = self._keyswitch_protected(d2c, level, kb, ka, probe, flags, fault)
         c0, c1 = add_mod(d0, k0, qb), add_mod(d1, k1, qb)
-        return Ciphertext([RnsPoly(c0, True), RnsPoly(c1, True)], scale), flags
+        return Ciphertext([RnsPoly(c0, True), RnsPoly(c1, True)], scale, correction), flags
 
     def multiply_relin(self, a: Ciphertext, b: Ciphertext,
                        fault: Optional[Fault] = None) -> Tuple[Ciphertext, Dict]:
         assert a.size == 2 and b.size == 2 and a.level == b.level
         rlk = self.ckks.rlk
         lvl = a.level
+        corr = a.correction * b.correction % self._ks_t if self._ks_t else 1
         return self._mul_relin_impl([c.data for c in a.c], [c.data for c in b.c], rlk.b, rlk.a,
                                     self._ks_probe(rlk, lvl, salt=-1), lvl,
-                                    a.scale * b.scale, fault)
+                                    a.scale * b.scale, fault, corr)
+
+
+class ProtectedBgv(ProtectedCkks):
+    """The protected evaluator over a BgvContext (`protected.py:551-571`):
+    the same protected keyswitch with the t-aware mod-down, and the
+    decryption correction carried as `fhe/bgv.py` carries it.  rotate_rows
+    and multiply_relin give BgvContext's arrays bit for bit."""
+
+    def __init__(self, bgv, checks=None):
+        super().__init__(bgv, checks)
+        self._ks_t = bgv.t
+
+    def rotate_rows(self, ct: Ciphertext, r: int,
+                    fault: Optional[Fault] = None) -> Tuple[Ciphertext, Dict]:
+        return self.apply_galois(ct, self.ckks.rotation_galois_element(r), fault)

@@ -1,8 +1,9 @@
 """RNS polynomial arithmetic over the moduli chain.
 
-Counterpart of `rfhe_tpu/fhe/rns.py` in CKKS mode.  An RnsPoly holds an
-int64 tensor of shape (level+1, N): limb j holds the coefficients (or the
-NTT-domain slots, order nu, Montgomery form) of the polynomial mod q_j.
+Counterpart of `rfhe_tpu/fhe/rns.py`, with the BGV t-mode of `drop_limb`.
+An RnsPoly holds an int64 tensor of shape (level+1, N): limb j holds the
+coefficients (or the NTT-domain slots, order nu, Montgomery form) of the
+polynomial mod q_j.
 """
 from __future__ import annotations
 
@@ -12,9 +13,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..numth import mod_inv, shoup_precompute
+from ..numth import barrett_constants, mod_inv, shoup_precompute
 from ..ops.modarith import (
-    add_mod, mont_mul, mul_mod_shoup, neg_mod, reduce_mod, sub_mod,
+    add_mod, barrett_word, mont_mul, mul_mod_shoup, neg_mod, reduce_mod, sub_mod,
 )
 from ..ops.ntt import NttPlan
 
@@ -158,23 +159,51 @@ def limb_plan(ctx: RnsContext, i: int) -> NttPlan:
     return ctx.plan.take([i])
 
 
+def bgv_lift_residue(ck: torch.Tensor, q_src: int, t: int) -> torch.Tensor:
+    """r ≡ [ck]_c·q_src⁻¹ (mod t), the reference's word (`rns.py:244-250`):
+    the Barrett reduction of ck·(q_src⁻¹ mod t), minus one mod t where ck
+    lifts to ck − q_src.  The product reaches 2^31·t, above t², where that
+    Barrett word is congruent but not reduced; every later step takes it as
+    it is, so the port does too (`modarith.barrett_word`)."""
+    mu, k = barrett_constants(t)
+    r = barrett_word(ck * mod_inv(q_src, t), t, mu, k)
+    return torch.where(ck > q_src // 2, sub_mod(r, 1, t), r)
+
+
+def bgv_lift_shift(r: torch.Tensor, src_k: int, keep: Sequence[int], t: int,
+                   ctx: RnsContext) -> torch.Tensor:
+    """q_src·[r]_c mod q_i for each kept modulus (..., len(keep), N): [r]_c
+    is r − t where r > t/2 (`rns.py:251-256`).  r may pass q_i; the
+    reference's Montgomery product of q_src mod q_i by it is still exact."""
+    keep_idx = ctx.index(keep)
+    q = ctx.plan.tables.q[keep_idx][:, None]
+    r_ = r.unsqueeze(-2)
+    r_c = torch.where((r > t // 2).unsqueeze(-2), sub_mod(r_, t % q, q), r_)
+    return ctx.qk_mod[src_k, keep_idx][:, None] * r_c % q
+
+
 def drop_limb(data: torch.Tensor, src_k: int, n_keep,
               ctx: RnsContext, t: Optional[int] = None) -> torch.Tensor:
-    """Exact RNS divide-and-round (`rfhe_tpu.fhe.rns.drop_limb`, CKKS mode):
-    given NTT-domain limbs data = [rows for the kept moduli] + [row for
-    modulus src_k] with optional leading batch dims (..., nk+1, N), return
-    ((data − δ)·q_src^{-1}) mod q_i for each kept modulus, δ the centered
-    lift of the src row.  `n_keep` is an int (moduli 0..n_keep-1) or a list
-    of modulus indices."""
-    if t is not None:
-        raise NotImplementedError("drop_limb's BGV t-mode is not ported yet")
+    """Exact RNS divide-and-round (`rfhe_tpu.fhe.rns.drop_limb`): given
+    NTT-domain limbs data = [rows for the kept moduli] + [row for modulus
+    src_k] with optional leading batch dims (..., nk+1, N), return
+    ((data − δ)·q_src^{-1}) mod q_i for each kept modulus.  `n_keep` is an
+    int (moduli 0..n_keep-1) or a list of modulus indices.  CKKS (t=None):
+    δ is the centered lift of the src row.  BGV (t given): δ also satisfies
+    δ ≡ 0 (mod t), δ = [c]_c − q_src·[r]_c with r of `bgv_lift_residue`,
+    so the message mod t survives up to the factor q_src⁻¹ the caller's
+    correction tracks."""
     keep = list(range(n_keep)) if isinstance(n_keep, int) else list(n_keep)
     nk = len(keep)
     src_row = limb_plan(ctx, src_k).inv(data[..., nk:nk + 1, :].contiguous())
-    delta = lift_to_limbs(src_row[..., 0, :], src_k, keep, ctx, centered=True)
-    delta_ntt = ctx.plan.take(keep).fwd(delta)
+    ck = src_row[..., 0, :]
+    delta = lift_to_limbs(ck, src_k, keep, ctx, centered=True)
     keep_idx = ctx.index(keep)
     q_lo = ctx.plan.tables.q[keep_idx][:, None]
+    if t is not None:
+        shift = bgv_lift_shift(bgv_lift_residue(ck, ctx.moduli[src_k], t), src_k, keep, t, ctx)
+        delta = sub_mod(delta, shift, q_lo)
+    delta_ntt = ctx.plan.take(keep).fwd(delta)
     num = sub_mod(data[..., :nk, :], delta_ntt, q_lo)
     return mul_mod_shoup(num, ctx.qk_inv[src_k, keep_idx][:, None],
                          ctx.qk_inv_shoup[src_k, keep_idx][:, None], q_lo)

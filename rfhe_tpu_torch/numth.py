@@ -98,6 +98,12 @@ def psi_negacyclic(n: int, q: int) -> int:
     return psi
 
 
+def barrett_constants(q: int) -> Tuple[int, int]:
+    """(mu, k): k = bitlen(q), mu = ⌊2^2k / q⌋ (`rfhe_tpu.numth.barrett_constants`)."""
+    k = q.bit_length()
+    return (1 << (2 * k)) // q, k
+
+
 def mod_inv(a: int, m: int) -> int:
     return pow(a, -1, m)
 

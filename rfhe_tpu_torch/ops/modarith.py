@@ -3,9 +3,10 @@
 Counterpart of `rfhe_tpu/ops/u32.py`.  The TPU has no 64-bit integer ALU, so
 the reference emulates 32x32->64 products in uint32 half-words; here residues
 are int64 and q < 2^31, so a product of two residues (< 2^62) is exact and
-most ops are one or two native tensor ops.  Every function returns canonical
-residues in [0, q) and agrees bit for bit with its u32.py namesake on the
-inputs that namesake accepts (tests/test_torch_modarith.py).
+most ops are one or two native tensor ops.  Every function but
+`barrett_word` returns canonical residues in [0, q), and each agrees bit for
+bit with its u32.py namesake on the inputs that namesake accepts
+(tests/test_torch_modarith.py, tests/test_torch_protect.py).
 
 `q` (and the other per-modulus constants) may be Python ints or int64
 tensors that broadcast against the data, e.g. shape (L, 1) for (L, n) data.
@@ -13,6 +14,8 @@ tensors that broadcast against the data, e.g. shape (L, 1) for (L, n) data.
 from __future__ import annotations
 
 import torch
+
+M32 = 0xFFFFFFFF
 
 
 def add_mod(a: torch.Tensor, b: torch.Tensor, q) -> torch.Tensor:
@@ -36,7 +39,10 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, q, rinv) -> torch.Tensor:
     """Montgomery product a·b·R^{-1} mod q, R = 2^32, for a < 2^32 and
     b < q.  The reference (`u32.mont_mul`) takes -q^{-1} mod R and runs REDC
     in half-words; here a·b < 2^63 is exact, so the same value is
-    (a·b mod q)·(R^{-1} mod q) mod q, with `rinv` = R^{-1} mod q."""
+    (a·b mod q)·(R^{-1} mod q) mod q, with `rinv` = R^{-1} mod q.  Off
+    that domain (b ≥ q) the reference's REDC word wraps and is not this one;
+    `protect.checks.mont_mul_checked` emulates REDC for such words
+    (tests/test_torch_protect.py pins both)."""
     return (a * b) % q * rinv % q
 
 
@@ -58,3 +64,21 @@ def reduce_mod(v: torch.Tensor, q) -> torch.Tensor:
     """v mod q for a residue v of another prime: the reference's
     `barrett_reduce64(zeros, v, q, mu, k)`."""
     return v % q
+
+
+def barrett_word(x: torch.Tensor, q: int, mu: int, k: int) -> torch.Tensor:
+    """The word the reference's Barrett reduction (`u32.barrett_reduce64`,
+    mu = ⌊2^2k/q⌋, k = bitlen(q) < 32) returns for a value 0 <= x < 2^62
+    held whole: s = ⌊x·mu/2^2k⌋ mod 2^32 (its 32-bit quotient word),
+    c = x − s·q, two conditional subtracts, the low word.  For x < q² that
+    is x mod q; above it the quotient is underestimated and the word is
+    congruent to x but not reduced, as the reference's is (BGV's t-mode lift
+    takes x = c·q_src⁻¹ up to 2^31·t).  x·mu may pass 2^63, so the quotient
+    is formed from x = x1·2^k + x0: ⌊x·mu/2^2k⌋ = ⌊(x1·mu + ⌊x0·mu/2^k⌋)/2^k⌋,
+    every term below 2^63."""
+    assert k < 32 and mu < (1 << (k + 1))
+    s = (((x >> k) * mu + (((x & ((1 << k) - 1)) * mu) >> k)) >> k) & M32
+    c = x - s * q
+    for _ in range(2):
+        c = torch.where(c >= q, c - q, c)
+    return c & M32

@@ -37,7 +37,8 @@ Importing this module needs no nvcc and no GPU.
 `fwd`/`inv` take int64 tensors (..., L, n) on a CUDA device, allocate the
 output (and the intermediate), launch on the current stream and count one
 launch of the form's kernel in `KERNELS.launches` (and, by the kernels that
-ran, in `KERNELS.by_kernels`) and each `__global__` launch in `KERNELS.passes`.  Anything the kernels do not take raises; there
+ran, in `KERNELS.by_kernels`; by shape in `KERNELS.by_shape`) and each
+`__global__` launch in `KERNELS.passes`.  Anything the kernels do not take raises; there
 is no fallback.
 """
 from __future__ import annotations
@@ -255,12 +256,14 @@ class NttKernels:
         self.launches = dict.fromkeys(FORMS, 0)   # transforms, by kernel form
         self.passes = dict.fromkeys(FORMS, 0)     # __global__ launches
         self.by_kernels = dict.fromkeys(KERNEL_SETS, 0)   # transforms, by the kernels that ran
+        self.by_shape: dict = {}                  # transforms, by (form, batch, L, n)
         self._lib: Optional[ctypes.CDLL] = None
 
     def reset_counts(self) -> None:
         self.launches = dict.fromkeys(FORMS, 0)
         self.passes = dict.fromkeys(FORMS, 0)
         self.by_kernels = dict.fromkeys(KERNEL_SETS, 0)
+        self.by_shape = {}
 
     @property
     def fwd_launches(self) -> int:
@@ -330,6 +333,8 @@ class NttKernels:
                 self.passes[form] += 1
         self.launches[form] += 1
         self.by_kernels[("inv_" if inverse else "fwd_") + kind] += 1
+        shape = (form, B, plan.L, plan.n)
+        self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
         return out
 
 

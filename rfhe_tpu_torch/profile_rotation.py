@@ -55,30 +55,24 @@ def group_of(kernel_name: str) -> str:
     return "other elementwise (add, sub, where, compare, shift, copy)"
 
 
-def profile_rotation(n: int, dnum: Optional[int], reps: int,
-                     seed: int = 7) -> Tuple[Dict[str, float], Dict[str, Tuple[float, int]]]:
-    """(totals, rows): totals holds wall_us, enqueue_us, device_us and launches
-    per rotation, the least and greatest SM clock read while rotating and the
-    NTT kernels' (name, device µs) in launch order; rows maps a report row to
-    (device µs, launches) per rotation."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_rotation needs a CUDA device")
-    ctx = CkksContext(CkksParams.make(n=n, **CHAIN), seed=seed, dnum=dnum, device="cuda")
-    z = np.random.default_rng(0).uniform(-1, 1, n // 2) + 0j
-    ct = ctx.encrypt(*ctx.encode(z))
+def profile_op(fn, reps: int) -> Tuple[Dict[str, float], Dict[str, Tuple[float, int]]]:
+    """Where a warm op spends its time: (totals, rows) per call of `fn`, as
+    `profile_rotation` reports them for a rotation (wall, enqueue, device,
+    launches, the SM clock, the NTT kernels in launch order, and the device
+    time by report row)."""
     for _ in range(2):
-        ctx.rotate(ct, 1)
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        ctx.rotate(ct, 1)
+        fn()
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         for _ in range(reps):
-            ctx.rotate(ct, 1)
+            fn()
         torch.cuda.synchronize()
     rows: Dict[str, list] = defaultdict(lambda: [0.0, 0])
     ntt = []
@@ -92,8 +86,8 @@ def profile_rotation(n: int, dnum: Optional[int], reps: int,
     if not rows:
         raise RuntimeError("the profiler recorded no device kernel")
     per = {k: (us / reps, count / reps) for k, (us, count) in rows.items()}
-    # every rotation launches the same NTT kernels in the same order: the mean
-    # of each position over the rotations
+    # every call launches the same NTT kernels in the same order: the mean
+    # of each position over the calls
     ntt.sort()
     k = len(ntt) // reps
     in_order = [(ntt[i][1].split("::")[-1].split("(")[0], sum(t for _, _, t in ntt[i::k]) / reps)
@@ -101,7 +95,7 @@ def profile_rotation(n: int, dnum: Optional[int], reps: int,
     with sampled_sm_clocks() as clocks:
         until = time.perf_counter() + 1.0
         while time.perf_counter() < until:
-            ctx.rotate(ct, 1)
+            fn()
         torch.cuda.synchronize()
     totals = {"wall_us": (t2 - t0) / reps * 1e6, "enqueue_us": (t1 - t0) / reps * 1e6,
               "device_us": sum(us for us, _ in per.values()),
@@ -109,6 +103,18 @@ def profile_rotation(n: int, dnum: Optional[int], reps: int,
               "sm_mhz": (min(clocks), max(clocks)) if clocks else None,
               "ntt_in_order": in_order}
     return totals, per
+
+
+def profile_rotation(n: int, dnum: Optional[int], reps: int,
+                     seed: int = 7) -> Tuple[Dict[str, float], Dict[str, Tuple[float, int]]]:
+    """`profile_op` of a warm rotation of a context with 21 ciphertext limbs
+    at ring n."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_rotation needs a CUDA device")
+    ctx = CkksContext(CkksParams.make(n=n, **CHAIN), seed=seed, dnum=dnum, device="cuda")
+    z = np.random.default_rng(0).uniform(-1, 1, n // 2) + 0j
+    ct = ctx.encrypt(*ctx.encode(z))
+    return profile_op(lambda: ctx.rotate(ct, 1), reps)
 
 
 def main() -> None:

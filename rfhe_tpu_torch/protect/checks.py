@@ -105,23 +105,37 @@ def barrett_range_protected(x_hi: torch.Tensor, x_lo: torch.Tensor, q: int, mu: 
 
 def mont_mul_checked(a: torch.Tensor, b: torch.Tensor, q, rinv,
                      s_bits: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The Montgomery product a·b·R^-1 mod q (a < 2^32, b < q) with the
-    reference's checks: the 64-bit product a·b against fold(a)·fold(b) mod
-    2^s + 1, and the output against the range window [0, q).  The product is
-    formed once and read by both the reduction and the check, so a fault in
-    it corrupts the output and is caught by the folded re-multiplication.
-    Returns (out, ok) per element."""
-    return mont_mul_checked_product(a, b, a * b, q, rinv, s_bits)
+    """The Montgomery product a·b·R^-1 mod q with the reference's checks:
+    the 64-bit product a·b against fold(a)·fold(b) mod 2^s + 1, and the
+    output against the range window [0, q).  The product is formed once, as
+    a (hi, lo) word pair, and read by both the reduction and the check, so a
+    fault in it corrupts the output and is caught by the folded
+    re-multiplication.  Any words a, b < 2^32 give the reference's word and
+    flag (`checks.py:214-219`), also off the domain b < q.  Returns (out, ok)
+    per element."""
+    return mont_mul_checked_product(a, b, mul32_parts(a, b), q, rinv, s_bits)
 
 
-def mont_mul_checked_product(a: torch.Tensor, b: torch.Tensor, prod: torch.Tensor, q, rinv,
+def mont_mul_checked_product(a: torch.Tensor, b: torch.Tensor, prod, q, rinv,
                              s_bits: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`mont_mul_checked` on a given 64-bit product `prod` of a and b (below
-    2^63), which a test may corrupt.  The fold check is
-    `intra_fold_product_check` on the product's words, taken whole."""
+    """`mont_mul_checked` on a given 64-bit product of a and b, which a test
+    may corrupt: a (hi, lo) word pair, or one int64 tensor below 2^63.
+
+    The reference reduces (hi, lo) in uint32 words: m = lo·q' mod 2^32 with
+    q' = -q^-1 mod 2^32, t = hi + ⌊m·q/2^32⌋ + [lo ≠ 0] mod 2^32, one
+    conditional subtract.  Its last two terms are c = (lo + m·q)/2^32, the
+    value in [0, q] that is ≡ lo·R^-1 (mod q) and 0 only for lo = 0, so
+    c = lo·rinv mod q, or q where that is 0 and lo is not; t = hi + c wraps
+    as the reference's does when the product passes q·2^32.  The fold check
+    compares fold(a)·fold(b) with the product's words mod 2^s + 1
+    (`intra_fold_product_check`, with the folds' product formed whole)."""
+    hi, lo = prod if isinstance(prod, tuple) else (prod >> 32, prod & M32)
+    c = lo * rinv % q
+    c = torch.where((c == 0) & (lo != 0), q, c)
+    t = (hi + c) & M32
+    out = torch.where(t >= q, t - q, t)
     M = (1 << s_bits) + 1
-    out = prod % q * rinv % q
-    ok = (fold_2s1_u32(a, s_bits) * fold_2s1_u32(b, s_bits) % M == prod % M) & (out < q)
+    ok = (a % M * (b % M) % M == fold_2s1_u64(hi, lo, s_bits)) & (out < q)
     return out, ok
 
 

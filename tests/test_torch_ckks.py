@@ -3,6 +3,7 @@
 keys, every ciphertext array and the decrypted 64-bit words are identical.
 Keys and ciphertexts made by the reference also carry into a port context of
 another seed.  Tolerance 0 for every integer array."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -160,16 +161,26 @@ def test_crt_to_words_matches_reference():
 
 
 def test_outside_the_slice_raises(pair):
-    _, tc, _, port, _ = pair
+    """What the port refuses (dnum=0, a missing device), and what it no
+    longer refuses: the BGV t-mode of drop_limb and keyswitch equal to the
+    reference's on the same words, and encrypt_seeded's c1 from the seed."""
+    from rfhe_tpu.fhe.keys import keyswitch as ref_keyswitch
+    from rfhe_tpu.fhe.rns import drop_limb as ref_drop_limb
+    from rfhe_tpu_torch.fhe.serialize import sample_uniform_a
+    rc, tc, _, port, _ = pair
     with pytest.raises(ValueError):
         CkksContext(CkksParams.make(**PARAMS), seed=3, dnum=0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tc.encrypt_seeded(*tc.encode(np.zeros(PARAMS["n"] // 2)), seed=1)
-    d = port["encrypt"].c[0].data
-    with pytest.raises(NotImplementedError):
-        drop_limb(d, 2, 2, tc.ctx, t=65537)
-    with pytest.raises(NotImplementedError):
-        keyswitch(d, tc.rlk, 2, tc.ctx, tc.L, t=65537)
-    assert len(compute_digits(d, 2, tc.ctx, tc.L, with_ecc=True)) == 4
     with pytest.raises(TypeError):
         CkksContext(CkksParams.make(**PARAMS), seed=3)      # no default device
+    ct = tc.encrypt_seeded(*tc.encode(np.zeros(PARAMS["n"] // 2)), seed=1)
+    np.testing.assert_array_equal(ct.to_numpy()[1],
+                                  sample_uniform_a(1, (3, PARAMS["n"]), tc.params.moduli))
+    d = port["encrypt"].c[0].data
+    dj = jnp.asarray(d.numpy().astype(np.uint32))
+    np.testing.assert_array_equal(drop_limb(d, 2, 2, tc.ctx, t=65537).numpy(),
+                                  np.asarray(ref_drop_limb(dj, 2, 2, rc.ctx, t=65537)))
+    got = keyswitch(d, tc.rlk, 2, tc.ctx, tc.L, t=65537)
+    want = ref_keyswitch(dj, rc.rlk, 2, rc.ctx, rc.L, t=65537)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert len(compute_digits(d, 2, tc.ctx, tc.L, with_ecc=True)) == 4

@@ -185,3 +185,63 @@ def test_protected_ops_match_cpu(cuda):
     for (a, fa), (b, fb) in zip(*runs):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
         assert list(fa) == list(fb) and all(torch.equal(fa[k], fb[k]) for k in fa)
+
+
+@pytest.mark.parametrize("n, t_bits", [(4096, 16), (16384, 17), (16384, 20)])
+def test_plaintext_modulus_plan(cuda, n, t_bits):
+    """BGV/BFV's t plan, (1, 1, n) with one 16- to 20-bit prime, in the form
+    it takes by itself and, at n = 16384, in both large-ring forms."""
+    plan = NttPlan.make(n, find_ntt_primes(n, t_bits, 1), cuda)
+    x = _rand(plan, 1, n)
+    y = _check(plan, x)
+    if n > ntt_cuda.MAX_ONE_BLOCK_N:
+        for kind in (ntt_cuda.TWO_PASS, ntt_cuda.CLUSTER):
+            assert torch.equal(_check(plan, x, (kind, ntt_cuda.large_split(n))), y)
+
+
+@pytest.mark.parametrize("batch, L", [(4, 13), (3, 13), (3, 10), (10, 11), (1, 10), (2, 1),
+                                      (2, 10), (9, 10), (1, 9)])
+def test_scheme_shapes(cuda, batch, L):
+    """The shapes of the BEHZ basis and of the BGV keyswitch at N = 16384
+    (30-bit primes, a non-contiguous take) against the plain versions."""
+    plan = NttPlan.make(16384, find_ntt_primes(16384, 30, L + 1), cuda)
+    plan = plan.take([L] + list(range(L - 1)))
+    _check(plan, _rand(plan, batch, L))
+
+
+@pytest.mark.parametrize("scheme", ["bgv", "bfv", "protected bgv"])
+def test_scheme_ops_match_cpu(cuda, scheme):
+    """BGV multiply_relin, mod_switch_to_next and rotate_rows, BFV
+    multiply_relin and rotate_rows, and ProtectedBgv's (arrays and flags),
+    at n=1024 on the card equal a CPU run of the same seed."""
+    import numpy as np
+    from rfhe_tpu_torch.fhe import BfvContext, BfvParams, BgvContext, BgvParams
+    from rfhe_tpu_torch.fhe.protected import ProtectedBgv
+
+    runs = []
+    for dev in (cuda, "cpu"):
+        if scheme == "bfv":
+            ctx = BfvContext(BfvParams.make(n=1024, levels=3), seed=13, device=dev)
+        else:
+            ctx = BgvContext(BgvParams.make(n=1024, levels=3), seed=11, dnum=2, device=dev)
+        m = np.random.default_rng(1).integers(0, ctx.t, (2, 512))
+        ct = ctx.encrypt(ctx.encode(m))
+        if scheme == "protected bgv":
+            prot = ProtectedBgv(ctx)
+            ops = [prot.rotate_rows(ct, 1), prot.multiply_relin(ct, ct)]
+            outs = [out for out, _ in ops]
+            flags = [{k: v.cpu() for k, v in f.items()} for _, f in ops]
+        else:
+            prod = ctx.multiply_relin(ct, ct)
+            outs = [prod, ctx.rotate_rows(ct, 1)]
+            if scheme == "bgv":
+                outs.append(ctx.mod_switch_to_next(prod))
+            flags = []
+        np.testing.assert_array_equal(ctx.decrypt_decode(outs[0]),
+                                      np.roll(m, -1, axis=1) if scheme == "protected bgv"
+                                      else m * m % ctx.t)
+        runs.append(([[c.data.cpu() for c in out.c] for out in outs], flags))
+    (a, fa), (b, fb) = runs
+    assert all(torch.equal(x, y) for xs, ys in zip(a, b) for x, y in zip(xs, ys))
+    assert all(list(f) == list(g) and all(torch.equal(f[k], g[k]) for k in f)
+               for f, g in zip(fa, fb))

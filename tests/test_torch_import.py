@@ -29,6 +29,9 @@ def test_import_without_jax():
         "import rfhe_tpu_torch.protect.checks, rfhe_tpu_torch.protect.ntt_guard\n"
         "import rfhe_tpu_torch.fhe.protected, rfhe_tpu_torch.faults.evaluator_campaign\n"
         "import rfhe_tpu_torch.bench.protected_overhead\n"
+        "import rfhe_tpu_torch.fhe.bgv, rfhe_tpu_torch.fhe.bfv, rfhe_tpu_torch.fhe.serialize\n"
+        "import rfhe_tpu_torch.ops.baseconv, rfhe_tpu_torch.models.dotprod\n"
+        "from rfhe_tpu_torch.fhe.protected import ProtectedBgv\n"
         "bad = [m for m, mod in sys.modules.items()\n"
         "       if mod is not None and m.split('.')[0] in ('jax', 'rfhe_tpu')]\n"
         "assert not bad, bad\n"

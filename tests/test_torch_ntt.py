@@ -832,3 +832,57 @@ def test_numth_copy_matches_reference(n, bits):
         assert tnumth.psi_negacyclic(n, q) == numth.PrimeCtx.make(q, n).psi
         assert tnumth.shoup_precompute(q - 1, q) == numth.shoup_precompute(q - 1, q)
     assert tnumth.crt_constants(primes) == numth.crt_constants(primes)
+
+
+# ---- the shapes BGV and BFV launch ------------------------------------------------
+# The plaintext-modulus plan (1, 1, n) with a 16- to 20-bit t, the BEHZ basis
+# (4 or 3 polynomials of k+3 limbs) and the BGV keyswitch at N = 16384.
+
+@pytest.mark.parametrize("n, t_bits, form", [
+    (4096, 16, "one_block"), (16384, 17, (CLUSTER, 7)), (16384, 17, (TWO_PASS, 7)),
+    (16384, 20, (CLUSTER, 7)), (16384, 20, (TWO_PASS, 7))])
+def test_plaintext_modulus_plan_emulated(n, t_bits, form):
+    """A t plan of one small prime: the lazy butterflies far below 2^30, the
+    entry reduction with ⌊2^32/t⌋ near 2^16 on random residues and on words
+    with a flipped bit; the emulated kernels give the plain versions'
+    words.  (At n = 16384 no prime below 2^16 is ≡ 1 mod 2n; 17 bits is
+    65537.)"""
+    primes = tnumth.find_ntt_primes(n, t_bits, 1)
+    plan = NttPlan.make(n, primes, "cpu")
+    x = _flipped(primes, (2, 1, n), seed=t_bits)
+    x[0] = _residues(primes, (1, n), seed=n)
+    for inverse, plain in ((False, ntt_fwd_reference), (True, ntt_inv_reference)):
+        want = plain(_t(x), plan).numpy()
+        got = (_emulate_one_block(x, plan, inverse) if form == "one_block"
+               else _emulate_large(x, plan, inverse, form[1], form[0]))
+        np.testing.assert_array_equal(got, want)
+    y = ntt_fwd_reference(_t(x[:1]), plan)
+    np.testing.assert_array_equal(ntt_inv_reference(y, plan).numpy(), x[:1])
+
+
+@pytest.mark.parametrize("batch, L", [(1, 1), (4, 13), (3, 13), (3, 10), (10, 11), (1, 10),
+                                      (2, 1), (2, 10), (9, 10), (1, 9)])
+def test_scheme_shapes_launch_plan(batch, L):
+    """Every (batch, L, 16384) that BGV (keyswitch at 10 + 1 limbs) and BFV
+    (the BEHZ basis of 13 limbs) launch takes the cluster kernels in one
+    launch of 8 CTAs per cluster, with polynomial groups that cover the
+    batch."""
+    n = 16384
+    kind, log_na = resolve_split(n, None, batch * L)
+    assert (kind, log_na) == (CLUSTER, 7)
+    for inverse in (False, True):
+        (name, (groups, log_n, na, log_c, log_n1)), = launch_plan(
+            kind, inverse, L, batch, 14, log_na, split_n(n)[0].bit_length() - 1, 132)
+        assert name.endswith("_cluster") and (log_n, na, log_c, log_n1) == (14, 7, 4, 7)
+        assert 1 <= groups <= batch and cluster_geometry(14, 7) == (4, 8)
+
+
+def test_bsk_basis_emulated():
+    """The BEHZ basis at (4, 3, 16384), a take of 30-bit primes in the order
+    `BehzPlan` keeps them, through the cluster kernels."""
+    primes = tnumth.find_ntt_primes(16384, 30, 3)
+    plan = NttPlan.make(16384, primes, "cpu").take([2, 0, 1])
+    x = _residues(plan.primes, (4, 3, 16384), seed=4).astype(np.int64)
+    y = ntt_fwd_reference(_t(x), plan).numpy()
+    np.testing.assert_array_equal(_emulate_large(x, plan, False, 7, CLUSTER), y)
+    np.testing.assert_array_equal(_emulate_large(y, plan, True, 7, CLUSTER), x)

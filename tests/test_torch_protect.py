@@ -256,3 +256,50 @@ def test_transpose_probe(rng, guards):
     lhs = gt._dot(V, _t(x))
     rhs = gt._dot(_t(u), plan.take(take).fwd(_t(x)))
     assert torch.equal(lhs, rhs)
+
+
+@pytest.mark.parametrize("domain", ["b < q", "b >= q", "any words"])
+def test_mont_mul_checked_off_domain(rng, domain):
+    """The checked product gives the reference's REDC word and flag for any
+    a, b below 2^32, b at or above q included (where the reference's word
+    wraps and is not a·b·R^-1 mod q).  The first case is the one the
+    roadmap's fault record names: q = 1073731073, a = 3243419750,
+    b = 1771810112, which gives 1315141112 with the flag false.  On b < q
+    the unchecked `modarith.mont_mul` is the reference's too."""
+    q = 1073731073
+    qinv = ref_numth.montgomery_constants(q, 32)[1]
+    rinv = pow((1 << 32) % q, -1, q)
+    a = _words(rng, (4, N))
+    lo, hi = {"b < q": (0, q), "b >= q": (q, 1 << 32), "any words": (0, 1 << 32)}[domain]
+    b = rng.integers(lo, hi, (4, N), dtype=np.int64)
+    if domain == "b >= q":
+        a[0, 0], b[0, 0] = 3243419750, 1771810112
+        b[0, 1] = (1 << 32) - 1
+    # a product whose low word is 0, and one whose low word is q
+    a[1, :2], b[1, :2] = (1 << 16, q), (1 << 16, 1 if domain != "b >= q" else q + 1)
+    out, ok = tc.mont_mul_checked(_t(a), _t(b), q, rinv)
+    r_out, r_ok = rc.mont_mul_checked(_j(a), _j(b), q, qinv)
+    _same(out, r_out)
+    _same(ok, r_ok)
+    if domain == "b >= q":
+        assert (int(out[0, 0]), bool(ok[0, 0])) == (1315141112, False)
+    if domain == "b < q":
+        from rfhe_tpu_torch.ops.modarith import mont_mul
+        _same(mont_mul(_t(a), _t(b), q, rinv), u32.mont_mul(_j(a), _j(b), q, qinv))
+        assert bool(ok.all())
+
+
+@pytest.mark.parametrize("q", [15361, 61441, 786433, PRIMES[2]])
+def test_barrett_word(rng, q):
+    """The reference's Barrett word of any value below 2^62, also of a
+    product c·(q_src⁻¹ mod t) far above t² (BGV's t-mode lift), where the
+    word is congruent to the value but not reduced."""
+    from rfhe_tpu_torch.ops.modarith import barrett_word
+    mu, k = ref_numth.barrett_constants(q)
+    x = rng.integers(0, 1 << 62, (2, N), dtype=np.int64)
+    x[0, :3] = (0, q * q - 1, (1 << 62) - 1)
+    x[1] = rng.integers(0, PRIMES[0], N, dtype=np.int64) * pow(PRIMES[0], -1, q)
+    want = u32.barrett_reduce64(_j(x >> 32), _j(x & 0xFFFFFFFF), q, mu, k)
+    got = barrett_word(_t(x), q, mu, k)
+    _same(got, want)
+    assert bool(((got[1] - _t(x[1])) % q == 0).all())      # the t-mode range stays congruent
