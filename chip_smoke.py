@@ -13,8 +13,9 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
      (per-limb and grouped digits, special limbs, mod-down deltas, the
      protection guard's tables, non-contiguous takes, 30- and 31-bit primes);
      batches that the polynomial groups do not divide and a batch of 70000, in
-     every form; and the large-ring kernels at n=256 ... 4096 beside the
-     one-block kernels.  Four vectors each: random, all q-1, a spike, and
+     every form; the large-ring kernels at n=256 ... 4096 beside the
+     one-block kernels; and the fault campaigns' shapes, (1, 8, 4096) of the
+     flip-impact sweep and (8, 8, 4096) of the monitor.  Four vectors each: random, all q-1, a spike, and
      random residues with one bit flipped per vector (words up to 2^32, some
      at or above q, as a fault stage hands them to the kernels), which go
      through both directions
@@ -69,7 +70,36 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
  13. BGV and BFV times: the warm dot product, BFV multiply_relin and
      rotate_rows (wall, device busy, launches, device time by kernel group,
      NTT launches by shape), the BEHZ stages alone by torch.profiler, and
-     every kernel form at the shapes the two schemes launch
+     every kernel form at the shapes the two schemes launch; then the
+     one-block kernels at the fault campaigns' shapes, (1, 8, 4096) and
+     (8, 8, 4096)
+
+The fault-injection campaigns (faults/, bench/sweeps.py), after phase 9:
+  A. pbits: three_stage_campaign for the 5 fault types x pbits 2, 6, ..., 22
+     at T=2000, W=24, S=8, seed 42 on the card; the 90 rows equal
+     results/pbits_W24_N64_T2000.csv as formatted there (two rows the
+     reference itself now gives otherwise are held against its current
+     values, PBITS_REFERENCE_NOW); wall and device operations per campaign,
+     the same count at T=64 and T=2000
+  B. the protected four-step NTT: the relia_ntt sweep (N=64, q of 10..30
+     bits step 2, SBF/DBF/MOF1, T=1000, seed 42) equal to a CPU run row for
+     row, and four_step_scenario_table at n=64, q=769, T=1000, likewise
+     equal to a CPU run
+  C. NTT flip impact through the hand kernels: NttPlan over 8 30-bit primes
+     at n=4096, batch 1, flips 1..15 x symbols 1..7, seed 42; the 105 rows
+     equal results/flipimpact_logN12.csv; kernel launches by shape
+  D. the BGV dot-product campaign at the dot-product phase's configuration
+     (N=16384, seed 11, a fresh context): the sweep_dotprod grid (bits 1..8
+     with 1 symbol, symbols 2..4 with 1 bit), seed 42, decoded through the
+     exact CRT; every clean check true; the (1 bit, 1 symbol) dict equal to
+     a CPU run of the same seeds; a fresh product's largest coefficient
+     against the reference decode's 2^62 window, and one campaign decoded
+     the reference's way
+  E. the clean-vs-clean monitor (bench/real_monitor.py): log N = 12, batch
+     8, 100 runs, a dot product every 50, into a temporary file; any nonzero
+     Hamming distance is printed as a capture
+  F. the atom overheads (bench/overheads.py) at n=4096, batch 8, each row
+     printed beside the card's name and power limit
 
 Phase 3 also holds the kernels at those shapes: the t plans (1, 1, 16384)
 at 20 and 17 bits and (1, 1, 4096) at 16, the BEHZ basis (4, 13, 16384) and
@@ -86,19 +116,26 @@ names the card and its power limit; the last line is
 from __future__ import annotations
 
 import contextlib
+import csv
 import json
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from rfhe_tpu_torch.bench import protected_overhead
+from rfhe_tpu_torch.bench import overheads, protected_overhead, real_monitor, sweeps
 from rfhe_tpu_torch.device import (DEVICE_TIMER, card, cuda_ms, device_ms, profile_kernels,
                                    profiled_us, to_numpy_u32, wall_us)
 from rfhe_tpu_torch.faults import evaluator_campaign
+from rfhe_tpu_torch.faults.campaign import (FAULT_TYPES, four_step_ntt_campaign,
+                                            four_step_scenario_table, three_stage_campaign)
+from rfhe_tpu_torch.faults.hardware import dotprod_fault_campaign
 from rfhe_tpu_torch.fhe import (BehzPlan, BfvContext, BfvParams, BgvContext, BgvParams,
                                 Ciphertext, CkksContext, CkksParams)
 from rfhe_tpu_torch.fhe.bgv import special_primes
+from rfhe_tpu_torch.fhe.ckks import rns_to_signed
 from rfhe_tpu_torch.fhe.keys import compute_digits
 from rfhe_tpu_torch.fhe.protected import Fault, ProtectedBgv, ProtectedCkks, all_ok
 from rfhe_tpu_torch.fhe.params import make_prime_chain
@@ -235,6 +272,7 @@ def kernel_cases() -> list:
     full = NttPlan.make(4096, chain, "cuda")
     special = len(chain) - 1
     small = NttPlan.make(256, make_prime_chain(256, [30] * 3), "cuda")
+    flip = NttPlan.make(4096, find_ntt_primes(4096, 30, 8), "cuda")
     mixed = lambda n: NttPlan.make(n, make_prime_chain(n, [30, 31, 30, 31]), "cuda").take([3, 0, 1])
     cases = [
         ("n=4096 (21, 22) keyswitch digits", full, 21, [None, (two_pass, 6), (cluster, 6)]),
@@ -251,6 +289,9 @@ def kernel_cases() -> list:
          [None, (two_pass, 4), (cluster, 7)]),
         ("n=256 30-bit (3, 3)", small, 3, [None, (two_pass, 4), (cluster, 4), (two_pass, 7), (cluster, 7)]),
         ("n=256 (70000, 1) beyond grid.y", small.take([1]), 70000, [None, (two_pass, 4), (cluster, 5)]),
+        # the fault campaigns: the flip-impact sweep and the monitor
+        ("n=4096 (1, 8) flip impact", flip, 1, [None]),
+        ("n=4096 (8, 8) monitor", flip, 8, [None]),
     ]
     for n in (512, 1024, 8192):
         own = ntt_cuda.large_split(n)
@@ -797,6 +838,205 @@ def phase_campaign() -> tuple:
     return launches
 
 
+RESULTS = Path(__file__).resolve().parent / "results"
+PBITS_CSV = "pbits_W24_N64_T2000.csv"
+FLIP_CSV = "flipimpact_logN12.csv"
+# Two rows of results/pbits_W24_N64_T2000.csv that rfhe_tpu itself no longer
+# gives (JAX on the CPU, three_stage_campaign("SCF-MBU", 2000, S=8, P=3,
+# W=24, seed=42): undetected 202 and 232, not 198 and 226).  At P = 3 an MBU
+# mask reaches 15 > 2q, so the wrapped word stays at or above q; the port
+# gives the reference's current values.  tests/test_torch_campaign.py
+# (test_pbits_reference_now) runs both at these settings and holds these
+# rows against them.
+PBITS_REFERENCE_NOW = {("SCF-MBU", "2", "1"): ["SCF-MBU", "2", "1", "656", "202", "0.307927"],
+                       ("SCF-MBU", "2", "3"): ["SCF-MBU", "2", "3", "677", "232", "0.342688"]}
+
+
+def committed_rows(name: str) -> list:
+    with open(RESULTS / name, newline="") as f:
+        return list(csv.reader(f))[1:]
+
+
+def phase_pbits() -> None:
+    """A. The three-stage campaign's sweep at the committed file's settings."""
+    committed = committed_rows(PBITS_CSV)
+    want = [PBITS_REFERENCE_NOW.get(tuple(r[:3]), r) for r in committed]
+    rows, t0 = [], time.perf_counter()
+    for row in sweeps.pbits_rows(2000, 64, 24, 42, range(2, 23, 4), "cuda"):
+        rows.append([str(v) for v in row])
+    secs = time.perf_counter() - t0
+    stale = [r for r, w in zip(committed, want) if r != w]
+    print(f"[pbits] {len(rows)} rows in {secs:.2f} s ({secs / (len(rows) // 3) * 1e3:.1f} ms per "
+          f"campaign of 2000 trials, {secs / (len(rows) // 3) / 2000 * 1e3:.4f} ms per trial)")
+    if rows != want:
+        bad = [(r, w) for r, w in zip(rows, want) if r != w]
+        raise RuntimeError(f"pbits rows differ from {PBITS_CSV}: {bad[:4]} ({len(bad)} rows)")
+    print(f"[pbits] all {len(rows)} rows equal {PBITS_CSV} ({len(stale)} rows against the "
+          f"reference's current values: {[w for r, w in zip(committed, want) if r != w]})")
+    for ftype in FAULT_TYPES:
+        ops = {}
+        for trials in (64, 2000):
+            run = lambda: three_stage_campaign(ftype, trials, S=8, P=53, W=24, seed=42,
+                                               device="cuda")
+            us, ops[trials] = profile_kernels(run, reps=1)
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            print(f"[pbits] {ftype} P=53 T={trials}: wall {wall:.2f} ms, device {us:.1f} us, "
+                  f"{ops[trials]:.0f} device operations per campaign")
+        if ops[64] != ops[2000]:
+            raise RuntimeError(f"{ftype}: device operations depend on the trial count: {ops}")
+
+
+def phase_four_step() -> None:
+    """B. The relia_ntt sweep on the card against a CPU run, and the
+    scenario table at n=64, q=769."""
+    grid = dict(trials=1000, N=64, fold=24, seed=42, qbits_range=range(10, 31, 2))
+    t0 = time.perf_counter()
+    rows = [[str(v) for v in r] for r in sweeps.relia_ntt_rows(device="cuda", **grid)]
+    secs = time.perf_counter() - t0
+    cpu = [[str(v) for v in r] for r in sweeps.relia_ntt_rows(device="cpu", **grid)]
+    for r in rows:
+        print(f"[relia_ntt] {','.join(r)}")
+    if rows != cpu:
+        raise RuntimeError("the relia_ntt rows on the card differ from the CPU run")
+    print(f"[relia_ntt] {len(rows)} campaigns of 1000 trials in {secs:.2f} s on the card "
+          f"({secs / len(rows) * 1e3:.1f} ms per campaign), equal to a CPU run row for row")
+    us, ops = profile_kernels(lambda: four_step_ntt_campaign("SBF", 1000, 64, 769, seed=42,
+                                                             device="cuda"), reps=1)
+    print(f"[relia_ntt] one campaign (SBF, n=64, T=1000): device {us:.1f} us, {ops:.0f} device "
+          f"operations")
+    t0 = time.perf_counter()
+    table = four_step_scenario_table(1000, 64, 769, seed=42, device="cuda")
+    secs = time.perf_counter() - t0
+    cpu_table = four_step_scenario_table(1000, 64, 769, seed=42, device="cpu")
+    for row in table:
+        print(f"[scenarios] {json.dumps(row)}")
+    print(f"[scenarios] {len(table)} rows (n=64, q=769, T=1000) in {secs:.2f} s")
+    if len(table) != 24 or table != cpu_table:
+        raise RuntimeError("the scenario table on the card differs from the CPU run")
+    print("[scenarios] equal to a CPU run row for row")
+
+
+def phase_flip_impact() -> dict:
+    """C. The NTT flip-impact sweep through the hand kernels."""
+    primes = find_ntt_primes(4096, 30, 8)
+    plan = NttPlan.make(4096, primes, "cuda")
+    ntt_cuda.KERNELS.reset_counts()
+    t0 = time.perf_counter()
+    rows = [[str(v) for v in r] for r in sweeps.ntt_err_rows(plan, 15, 7, 42)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k = ntt_cuda.KERNELS
+    launches, by_shape = dict(k.launches), dict(k.by_shape)
+    committed = committed_rows(FLIP_CSV)
+    print(f"[flip] {len(rows)} campaigns (n=4096, 8 x 30-bit primes, batch 1) in {secs:.2f} s; "
+          f"kernel launches {launches}, by shape {by_shape} "
+          f"({sum(launches.values()) / len(rows):.0f} per campaign)")
+    if rows != committed:
+        bad = [(r, w) for r, w in zip(rows, committed) if r != w]
+        raise RuntimeError(f"flip-impact rows differ from {FLIP_CSV}: {bad[:4]}")
+    print(f"[flip] all {len(rows)} rows equal {FLIP_CSV}")
+    if launches["fwd"] != 2 * len(rows):
+        raise RuntimeError(f"expected two forward launches per campaign: {launches}")
+    return launches
+
+
+def product_window(ctx) -> None:
+    """Why the reference's decode fails on a fresh product at this ring: the
+    largest centered coefficient of [c(s)]_Q of multiply_relin(x, y) against
+    decrypt_decode's CRT window (exact below 2^62); the exact CRT must give
+    x*y mod t."""
+    m1, m2 = (np.random.default_rng(s).integers(0, ctx.t, (2, ctx.params.n // 2)) for s in (3, 4))
+    prod = ctx.multiply_relin(ctx.encrypt(ctx.encode(m1)), ctx.encrypt(ctx.encode(m2)))
+    signed = rns_to_signed(to_numpy_u32(ctx._decrypt_coeffs(prod)),
+                           ctx.params.moduli[:prod.level + 1])
+    bits = max(abs(int(v)) for v in signed).bit_length()
+    want = m1 * m2 % ctx.t
+    window_ok = np.array_equal(ctx.decrypt_decode(prod), want)
+    exact_ok = np.array_equal(ctx.decode(ctx.decrypt_coeffs_t(prod, exact=True)), want)
+    print(f"[dotprod] a fresh product at N={ctx.params.n}, t={ctx.t}: largest centered coefficient "
+          f"2^{bits}; decrypt_decode (CRT window 2^62) right: {window_ok}; exact CRT right: "
+          f"{exact_ok}")
+    if not exact_ok or not (window_ok or bits > 62):
+        raise RuntimeError("the product decrypts wrong, or the CRT window fails below 2^62")
+
+
+def phase_dotprod_campaign() -> dict:
+    """D. The BGV dot-product campaign at N=16384 (the dot-product phase's
+    parameters and seed, a fresh context so that a CPU run draws the same
+    keys in the same order).  The grid decodes through the exact CRT: a
+    fresh product's noise passes the reference's 2^62 window at this ring
+    (`product_window`), and one campaign is run the reference's way to show
+    what that gives."""
+    params = BgvParams.make(**BGV_DOT)
+    ntt_cuda.KERNELS.reset_counts()
+    t0 = time.perf_counter()
+    ctx = BgvContext(params, seed=BGV_SEED, device="cuda")
+    keys_s = time.perf_counter() - t0
+    results = []
+    for bits, syms in sweeps.dotprod_grid(8, 4):
+        res = dotprod_fault_campaign(ctx, bits, syms, seed=42, exact_decrypt=True)
+        results.append(res)
+        print(f"[dotprod] bits {bits}, symbols {syms}: {json.dumps(res)}")
+        if not (res["clean_product_ok"] and res["clean_dot_ok"]):
+            raise RuntimeError(f"the clean dot product fails at bits {bits}, symbols {syms}")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ntt_cuda.KERNELS.launches)
+    print(f"[dotprod] N={params.n}: {len(results)} campaigns in {secs:.2f} s (keygen {keys_s:.2f} "
+          f"s; {(secs - keys_s) / len(results):.3f} s per campaign: 2 multiply_relin, 2 dot "
+          f"products, 4 decryptions); kernel launches {launches}")
+    t0 = time.perf_counter()
+    cpu = dotprod_fault_campaign(BgvContext(params, seed=BGV_SEED, device="cpu"), 1, 1, seed=42,
+                                 exact_decrypt=True)
+    print(f"[dotprod] (1 bit, 1 symbol) on the CPU: {json.dumps(cpu)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if cpu != results[0]:
+        raise RuntimeError("the (1 bit, 1 symbol) dot-product campaign differs from a CPU run")
+    product_window(ctx)
+    ref_way = dotprod_fault_campaign(ctx, 1, 1, seed=42)
+    print(f"[dotprod] (1 bit, 1 symbol) decoded as the reference decodes (decrypt_decode): "
+          f"{json.dumps(ref_way)}")
+    if not ref_way["clean_dot_ok"]:
+        raise RuntimeError("the clean dot product decodes wrong through decrypt_decode")
+    return launches
+
+
+def phase_monitor() -> dict:
+    """E. The clean-vs-clean monitor, into a temporary file."""
+    ntt_cuda.KERNELS.reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = real_monitor.run(runs=100, log_dim=12, batch=8, dot_every=50,
+                               out=str(Path(tmp) / "monitor.txt"), device="cuda", log=None)
+        head = (Path(tmp) / "monitor.txt").read_text().splitlines()[0]
+    torch.cuda.synchronize()
+    launches = dict(ntt_cuda.KERNELS.launches)
+    print(f"[monitor] {head}")
+    print(f"[monitor] {res['runs']} runs (n=4096, batch 8, a dot product every 50) in "
+          f"{res['seconds']:.2f} s ({res['seconds'] / res['runs'] * 1e3:.1f} ms per run); "
+          f"silent faults {res['faults']}; kernel launches {launches}")
+    for line in res["captures"]:
+        print(f"[monitor] CAPTURE: {line}")
+    if launches["fwd"] < 2 * res["runs"]:
+        raise RuntimeError(f"the monitor did not run the kernels: {launches}")
+    return launches
+
+
+def phase_atom_overheads(c: str) -> None:
+    """F. The atom overheads at n=4096, batch 8."""
+    res = overheads.measure(n=4096, batch=8)
+    for row in res["rows"]:
+        line = (f"[atoms] {c}: {row['atom']}: plain {row['plain_us']:.2f} us, protected "
+                f"{row['prot_us']:.2f} us, x{row['overhead']:.4f} by {row['timer']}; wall "
+                f"{row['plain_wall_us']:.1f} -> {row['prot_wall_us']:.1f} us "
+                f"(x{row['wall_overhead']:.4f})")
+        if row["plain_launches"] is not None:
+            line += f"; device ops {row['plain_launches']:.0f} -> {row['prot_launches']:.0f}"
+        print(line)
+
+
 def phase_overheads(c: str) -> list:
     """protected/plain by the device timer (NTT, ModMul) and by torch.profiler
     and the host's wall clock (rotation, multiply+relin) with the device
@@ -941,6 +1181,14 @@ def phase_times(ctxs: dict, cts: dict, c: str) -> dict:
     return times
 
 
+def phase_fault_times(c: str) -> dict:
+    """The kernels at the shapes the fault campaigns launch: the flip-impact
+    sweep's (1, 8, 4096) and the monitor's (8, 8, 4096), 30-bit primes."""
+    plan = NttPlan.make(4096, find_ntt_primes(4096, 30, 8), "cuda")
+    return {"4096 flip impact": time_forms(c, plan, 1, [0]),
+            "4096 monitor": time_forms(c, plan, 8, [0])}
+
+
 def ntt_shapes(fn) -> dict:
     """NTT launches of one warm call of `fn`, by (form, batch, L, n)."""
     fn()
@@ -1012,13 +1260,14 @@ def phase_scheme_times(c: str, bgv: tuple, bfv: tuple) -> dict:
 
 
 def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
-                   scheme: dict) -> list:
+                   scheme: dict, faults: dict) -> list:
     """One record per kernel form at its path's keyswitch shape, in the form
     that shape takes by itself, with every other shape and form timed in this
     run under `other_shapes`.  `ms` is the device timer's reading, `paced_ms`
     the host-paced one.  `launches` counts every counted path;
-    `launches_protected` and `launches_bgv_bfv` are the shares of the
-    protected paths and campaigns and of the BGV, BFV and ProtectedBgv paths."""
+    `launches_protected`, `launches_bgv_bfv` and `launches_faults` are the
+    shares of the protected paths and campaigns, of the BGV, BFV and
+    ProtectedBgv paths, and of the fault campaigns and the monitor."""
     records = []
     for d in ("fwd", "inv"):
         for large, key in (("", "4096"), ("_large", "65536")):
@@ -1030,6 +1279,7 @@ def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
                             "replaces": REPLACES[d], "launches": launches[d + large],
                             "launches_protected": protected[d + large],
                             "launches_bgv_bfv": scheme[d + large],
+                            "launches_faults": faults[d + large],
                             "max_abs_err": err[d + large], "ms": head["ms"],
                             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                             "bound_by": head["bound_by"], "library_ms": None,
@@ -1068,19 +1318,29 @@ def main() -> None:
     protected, prot_kernels = phase_protected(ctxs)
     for form, count in phase_campaign().items():
         protected[form] += count
+    # the fault-injection campaigns (phases A-E)
+    phase_pbits()
+    phase_four_step()
+    faults = dict.fromkeys(ntt_cuda.FORMS, 0)
+    for path in (phase_flip_impact(), phase_dotprod_campaign(), phase_monitor()):
+        for form, count in path.items():
+            faults[form] += count
     for form in launches:
-        launches[form] += protected[form] + scheme[form]
+        launches[form] += protected[form] + scheme[form] + faults[form]
     print(f"[main] kernel launches over all counted paths: {launches}, of which on the protected "
-          f"CKKS paths and the campaigns {protected}, on the BGV, BFV and ProtectedBgv paths {scheme}")
+          f"CKKS paths and the campaigns {protected}, on the BGV, BFV and ProtectedBgv paths "
+          f"{scheme}, in the fault campaigns and the monitor {faults}")
     print(f"[main] on the N=4096 and the two N=65536 paths, by the kernels that ran: {by_kernels}; "
           f"protected: {prot_kernels}")
     if min(launches.values()) == 0 or min(by_kernels.values()) == 0:
         raise RuntimeError(f"kernels that no path launched: {launches}, {by_kernels}")
     cts = phase_counts(ctxs)
     phase_overheads(c)
+    phase_atom_overheads(c)
     times = phase_times(ctxs, cts, c)
     times.update(phase_scheme_times(c, bgv, bfv))
-    print(json.dumps({"kernels": kernel_records(err, launches, times, protected, scheme)}))
+    times.update(phase_fault_times(c))
+    print(json.dumps({"kernels": kernel_records(err, launches, times, protected, scheme, faults)}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

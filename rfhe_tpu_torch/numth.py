@@ -1,12 +1,14 @@
 """Host-side number theory (exact Python integers).
 
 Copy of the parts of `rfhe_tpu/numth.py` the port needs (primes, roots of
-unity, Shoup and CRT constants), so the port loads nothing of the JAX package.
-tests/test_torch_ntt.py holds the two copies equal on the chains in use.
+unity, Shoup, Montgomery and CRT constants), so the port loads nothing of the
+JAX package.  tests/test_torch_ntt.py and tests/test_torch_four_step.py hold
+the two copies equal on the chains and primes in use.
 """
 from __future__ import annotations
 
 import math
+import random
 from functools import lru_cache
 from typing import List, Sequence, Tuple
 
@@ -42,10 +44,43 @@ def is_prime(n: int) -> bool:
     return True
 
 
-def find_ntt_primes(n: int, bit_width: int, count: int = 1) -> List[int]:
-    """Largest `count` primes q < 2^bit_width with q ≡ 1 (mod 2n)
-    (`rfhe_tpu.numth.find_ntt_primes`, negacyclic)."""
-    step = 2 * n
+def next_prime_ge(n: int) -> int:
+    """The least prime >= n (`rfhe_tpu.numth.next_prime_ge`)."""
+    if n <= 2:
+        return 2
+    if n % 2 == 0:
+        n += 1
+    while not is_prime(n):
+        n += 2
+    return n
+
+
+def find_prime_with_bitlen(bitlen: int, rng: random.Random) -> int:
+    """A random prime of exact bit length, drawn from `rng` as
+    `rfhe_tpu.numth.find_prime_with_bitlen` draws it."""
+    if bitlen < 2:
+        raise ValueError("bitlen must be >= 2")
+    while True:
+        n = (1 << (bitlen - 1)) | rng.getrandbits(bitlen - 1) | 1
+        if is_prime(n):
+            return n
+
+
+def generate_crt_primes(limbs: int, bitwidth: int, rng: random.Random) -> List[int]:
+    """Distinct random primes of exact bit width (`rfhe_tpu.numth.generate_crt_primes`)."""
+    primes: List[int] = []
+    while len(primes) < limbs:
+        p = next_prime_ge(rng.getrandbits(bitwidth) | (1 << (bitwidth - 1)) | 1)
+        if p.bit_length() == bitwidth and p not in primes:
+            primes.append(p)
+    return primes
+
+
+def find_ntt_primes(n: int, bit_width: int, count: int = 1,
+                    negacyclic: bool = True) -> List[int]:
+    """Largest `count` primes q < 2^bit_width with q ≡ 1 (mod 2n), or
+    (mod n) for a cyclic transform (`rfhe_tpu.numth.find_ntt_primes`)."""
+    step = 2 * n if negacyclic else n
     start = (((1 << bit_width) - 1) // step) * step + 1
     out: List[int] = []
     q = start
@@ -56,6 +91,10 @@ def find_ntt_primes(n: int, bit_width: int, count: int = 1) -> List[int]:
     if len(out) < count:
         raise ValueError(f"not enough NTT primes: n={n} bits={bit_width} need={count}")
     return out
+
+
+def find_ntt_prime(n: int, bit_width: int, negacyclic: bool = True) -> int:
+    return find_ntt_primes(n, bit_width, 1, negacyclic)[0]
 
 
 def _factorize(n: int) -> List[int]:
@@ -87,6 +126,16 @@ def primitive_root(q: int) -> int:
     raise ValueError(f"no primitive root found for {q}")
 
 
+def root_of_unity(order: int, q: int) -> int:
+    """Primitive `order`-th root of unity mod q (`rfhe_tpu.numth.root_of_unity`)."""
+    if (q - 1) % order != 0:
+        raise ValueError(f"order {order} does not divide q-1 for q={q}")
+    w = pow(primitive_root(q), (q - 1) // order, q)
+    if pow(w, order, q) != 1 or any(pow(w, order // f, q) == 1 for f in _factorize(order)):
+        raise ArithmeticError(f"{w} is not a primitive {order}-th root mod {q}")
+    return w
+
+
 def psi_negacyclic(n: int, q: int) -> int:
     """Primitive 2n-th root ψ with ψ^n ≡ -1 (mod q): the same ψ as
     `rfhe_tpu.numth.PrimeCtx.make(q, n).psi`."""
@@ -106,6 +155,15 @@ def barrett_constants(q: int) -> Tuple[int, int]:
 
 def mod_inv(a: int, m: int) -> int:
     return pow(a, -1, m)
+
+
+def montgomery_constants(q: int, word_bits: int = 32) -> Tuple[int, int, int]:
+    """(R, -q^-1 mod R, R^2 mod q) for R = 2^word_bits
+    (`rfhe_tpu.numth.montgomery_constants`); odd q < R."""
+    if q % 2 == 0 or q >= (1 << word_bits):
+        raise ValueError("Montgomery requires odd q < R")
+    R = 1 << word_bits
+    return R, (-pow(q, -1, R)) % R, (R * R) % q
 
 
 def shoup_precompute(w: int, q: int) -> int:

@@ -82,3 +82,21 @@ def barrett_word(x: torch.Tensor, q: int, mu: int, k: int) -> torch.Tensor:
     for _ in range(2):
         c = torch.where(c >= q, c - q, c)
     return c & M32
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits per word, for int64 words below 2^32 (`u32.popcount32`'s SWAR
+    steps; torch has no popcount)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & M32) >> 24
+
+
+def mod_u64(hi: torch.Tensor, lo: torch.Tensor, m: int) -> torch.Tensor:
+    """(hi·2^32 + lo) mod m for any m < 2^31, prime or not (the injectors'
+    m = 2^W - 1): the low word of the reference's `inject._mod_u64`, whose
+    33 shift-subtract steps end in this residue for (hi:lo) < m·2^33, as
+    every caller's value is (the product of two words below 2^24).  Here
+    the residue is formed directly, (hi mod m)·(2^32 mod m) + lo below 2^63."""
+    return ((hi % m) * ((1 << 32) % m) + lo) % m

@@ -6,6 +6,10 @@ inputs:
 
   matmul_check              col·row checksum of a modular matmul
   elementwise_fold_check    Σ fold(x)·fold(t) == Σ fold(y)  (mod 2^w - 1)
+  stage1_projection_check / stage2_projection_check
+                            random-weight projections over the four-step
+                            NTT's matmul stages
+  twiddle_inter_check       random-φ checksum across its twiddle stage
   twiddle_collision_model   the collision model of a fold of width w
   intra_fold_product_check  fold(a)·fold(b) == fold(a·b)  (mod 2^s + 1)
   barrett_range_protected   Barrett reduction with pre/post range windows
@@ -15,17 +19,20 @@ inputs:
   baseconv_append_checksum / baseconv_ecc_check
                             the appended checksum of a base conversion
 
-The reference's three checks that draw a probe from a JAX PRNG key
-(`stage1_projection_check`, `stage2_projection_check`,
-`twiddle_inter_check`) belong to the four-step NTT campaign and are not
-ported yet.
+The three probe checks take a key of `prng` (the port's copy of the
+reference's `jax.random` draws) and draw the same probe vector as the
+reference does from the same key.  A key with leading axes (one per trial)
+draws one probe per trial; the stage tensors then carry the same leading axes.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
+from .. import prng
+from ..ops.matmul_mod import DigitPlan, matmul_mod
 from ..ops.modring import ModArith, sum_mod
 from .fold import M32, fold_2s1_u32, fold_2s1_u64, fold_u32, fold_u64, mul32_parts
 
@@ -40,6 +47,12 @@ def matmul_check(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     return lhs == rhs
 
 
+def _rand_mod(key, shape, q: int, device) -> torch.Tensor:
+    """randint(key, shape, 0, q) in uint32 (`checks._rand_mod`), as an int64
+    tensor on `device`: (*key.shape[:-1], *shape)."""
+    return torch.from_numpy(prng.randint(key, shape, 0, q, np.uint32).astype(np.int64)).to(device)
+
+
 def elementwise_fold_check(X: torch.Tensor, T: torch.Tensor, Y: torch.Tensor,
                            w: int) -> torch.Tensor:
     """Under M = 2^w - 1: Σ fold(X_i)·fold(T_i) == Σ fold(Y_i), Y = X·T mod M."""
@@ -48,6 +61,36 @@ def elementwise_fold_check(X: torch.Tensor, T: torch.Tensor, Y: torch.Tensor,
     s_in = sum_mod(fold_u64(p_hi, p_lo, w), M, axis=-1)
     s_out = sum_mod(fold_u32(Y, w), M, axis=-1)
     return s_in == s_out
+
+
+def stage1_projection_check(A: torch.Tensor, B: torch.Tensor, W2: torch.Tensor,
+                            digit: DigitPlan, arith: ModArith, key) -> torch.Tensor:
+    """Stage 1 (B = W2 @ A) of the four-step NTT, a random w over rows:
+    <W2·w, rowsums(A)> == <w, rowsums(B)>  (W2 symmetric)."""
+    w = _rand_mod(key, (A.shape[-2],), arith.q, A.device)
+    w_hat = matmul_mod(W2, w[..., None], digit)[..., 0]
+    lhs = arith.dot(w_hat, sum_mod(A, arith.q, axis=-1), axis=-1)
+    return lhs == arith.dot(w, sum_mod(B, arith.q, axis=-1), axis=-1)
+
+
+def stage2_projection_check(B: torch.Tensor, Y: torch.Tensor, W1T: torch.Tensor,
+                            digit: DigitPlan, arith: ModArith, key) -> torch.Tensor:
+    """Stage 2 (Y = B @ W1ᵀ), a random w over columns:
+    <W1·w, colsums(B)> == <w, colsums(Y)>."""
+    w = _rand_mod(key, (B.shape[-1],), arith.q, B.device)
+    w_hat = matmul_mod(W1T.T, w[..., None], digit)[..., 0]
+    lhs = arith.dot(w_hat, sum_mod(B, arith.q, axis=-2), axis=-1)
+    return lhs == arith.dot(w, sum_mod(Y, arith.q, axis=-2), axis=-1)
+
+
+def twiddle_inter_check(B_before: torch.Tensor, B_after: torch.Tensor, T: torch.Tensor,
+                        arith: ModArith, key) -> torch.Tensor:
+    """The random-φ checksum across the twiddle stage:
+    <φ, rowsums(B_after)> == <φ, rowsums(T ⊙ B_before)>."""
+    phi = _rand_mod(key, (B_before.shape[-2],), arith.q, B_before.device)
+    lhs = arith.dot(phi, sum_mod(B_after, arith.q, axis=-1), axis=-1)
+    weighted = arith.mul(T, B_before)
+    return lhs == arith.dot(phi, sum_mod(weighted, arith.q, axis=-1), axis=-1)
 
 
 def twiddle_collision_model(B_true: torch.Tensor, B_faulty: torch.Tensor,

@@ -245,3 +245,79 @@ def test_scheme_ops_match_cpu(cuda, scheme):
     assert all(torch.equal(x, y) for xs, ys in zip(a, b) for x, y in zip(xs, ys))
     assert all(list(f) == list(g) and all(torch.equal(f[k], g[k]) for k in f)
                for f, g in zip(fa, fb))
+
+
+def test_matmul_mod_exact_on_card(cuda):
+    """The float64 split on the card's FP64 units equals the exact product in
+    Python integers, at the four-step's n2 = 64 and at a contraction of 8192."""
+    import numpy as np
+    from rfhe_tpu_torch.ops.matmul_mod import DigitPlan, matmul_mod
+
+    for bits in (20, 30, 31):
+        q = find_ntt_primes(64, bits, 1)[0]
+        plan = DigitPlan(q)
+        for m, k, n in ((64, 64, 64), (8, 8192, 8)):
+            g = torch.Generator().manual_seed(k + bits)
+            a = torch.randint(0, 1 << 32, (3, m, k), generator=g)
+            b = torch.randint(0, 1 << 32, (k, n), generator=g)
+            mask = plan.word_mask                          # the bits the reference's digits read
+            want = ((a & mask).numpy().astype(object) @ (b & mask).numpy().astype(object)) % q
+            got = matmul_mod(a.to(cuda), b.to(cuda), plan).cpu().numpy()
+            assert (got == want).all()
+
+
+@pytest.mark.parametrize("ftype", ["SCF-BF", "SCF-MBU", "MCF-PPE", "MCF-CTE", "MCF-CLE"])
+def test_three_stage_campaign_matches_cpu(cuda, ftype):
+    from rfhe_tpu_torch.faults.campaign import three_stage_campaign
+
+    got = three_stage_campaign(ftype, 512, S=8, P=53, W=24, seed=42, device="cuda")
+    want = three_stage_campaign(ftype, 512, S=8, P=53, W=24, seed=42, device="cpu")
+    assert all((got[k] == want[k]).all() for k in want)
+
+
+@pytest.mark.parametrize("scenario, target", [("SBF", None), ("MLF+DBF", 0), ("SBF+SBF", 2)])
+def test_four_step_campaign_matches_cpu(cuda, scenario, target):
+    from rfhe_tpu_torch.faults.campaign import four_step_ntt_campaign
+
+    kw = dict(fold_width=24, seed=42, target_stage=target)
+    got = four_step_ntt_campaign(scenario, 512, 256, 7681, device="cuda", **kw)
+    want = four_step_ntt_campaign(scenario, 512, 256, 7681, device="cpu", **kw)
+    assert got["stats"] == want["stats"] and got["det_rate"] == want["det_rate"]
+    assert (got["per_stage_miss"] == want["per_stage_miss"]).all()
+
+
+def test_ntt_flip_campaign_matches_cpu(cuda):
+    """Through the hand kernels: the statistics and a launch per transform."""
+    from rfhe_tpu_torch.faults.hardware import ntt_flip_campaign, ntt_real_test
+
+    primes = find_ntt_primes(4096, 30, 8)
+    plans = {dev: NttPlan.make(4096, primes, dev) for dev in (cuda, "cpu")}
+    for flips, syms in ((1, 1), (3, 7), (15, 7)):
+        before = ntt_cuda.KERNELS.fwd_launches
+        got, info = ntt_flip_campaign(plans[cuda], 1, flips, syms, seed=42)
+        assert ntt_cuda.KERNELS.fwd_launches == before + 2
+        want, want_info = ntt_flip_campaign(plans["cpu"], 1, flips, syms, seed=42)
+        assert vars(got) == vars(want) and info == want_info
+    assert ntt_real_test(plans[cuda], batch=8, seed=0).hamming_bits == 0
+
+
+def test_dotprod_fault_campaign_matches_cpu(cuda):
+    from rfhe_tpu_torch.faults.hardware import dotprod_fault_campaign
+    from rfhe_tpu_torch.fhe import BgvContext, BgvParams
+
+    res = [dotprod_fault_campaign(BgvContext(BgvParams.make(n=1024, levels=2, q_bits=30,
+                                                            t_bits=16), seed=5, device=dev),
+                                  2, 3, seed=42) for dev in (cuda, "cpu")]
+    assert res[0] == res[1]
+    assert res[0]["clean_product_ok"] and res[0]["clean_dot_ok"] and res[0]["symbol_errors"] > 0
+
+
+def test_overhead_atoms_match_cpu(cuda):
+    from rfhe_tpu_torch.bench.overheads import atoms
+
+    on_card, on_cpu = atoms(4096, 8, "cuda"), atoms(4096, 8, "cpu")
+    for name in on_card:
+        for fn_card, fn_cpu in zip(on_card[name], on_cpu[name]):
+            a, b = fn_card(), fn_cpu()
+            a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+            assert all(torch.equal(x.cpu(), y) for x, y in zip(a, b)), name

@@ -32,6 +32,12 @@ def test_import_without_jax():
         "import rfhe_tpu_torch.fhe.bgv, rfhe_tpu_torch.fhe.bfv, rfhe_tpu_torch.fhe.serialize\n"
         "import rfhe_tpu_torch.ops.baseconv, rfhe_tpu_torch.models.dotprod\n"
         "from rfhe_tpu_torch.fhe.protected import ProtectedBgv\n"
+        "import rfhe_tpu_torch.prng, rfhe_tpu_torch.ops.matmul_mod\n"
+        "import rfhe_tpu_torch.transform.four_step\n"
+        "import rfhe_tpu_torch.faults.inject, rfhe_tpu_torch.faults.campaign\n"
+        "import rfhe_tpu_torch.faults.hardware, rfhe_tpu_torch.bench.real_monitor\n"
+        "import rfhe_tpu_torch.bench.sweeps, rfhe_tpu_torch.bench.overheads\n"
+        "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items()\n"
         "       if mod is not None and m.split('.')[0] in ('jax', 'rfhe_tpu')]\n"
         "assert not bad, bad\n"
@@ -45,7 +51,7 @@ def test_import_without_jax():
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix()
-                                        for p in PKG.rglob("*.py")))
+                                        for p in PKG.rglob("*.py")) + ["chip_smoke.py"])
 def test_source_imports_no_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
