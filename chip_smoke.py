@@ -101,6 +101,27 @@ The fault-injection campaigns (faults/, bench/sweeps.py), after phase 9:
   F. the atom overheads (bench/overheads.py) at n=4096, batch 8, each row
      printed beside the card's name and power limit
 
+The profiling layer (ops/ntt_pease.py, trace/, models/bsgs.py, the bench
+modules), last, after phase 13:
+  G. Pease: PeaseNttPlan forward and inverse on the card equal to a CPU run
+     at (2, 21, 4096) and (1, 6, 65536); ntt_pease.negacyclic_ntt / _intt on
+     an NttPlan launch K1 / K2 once each and equal the plain butterflies
+  H. north star (bench/northstar.py): CKKS multiply + rescale at N=65536,
+     levels 16, 2^56 composite scale (34 + 1 limbs), seed 7, equal to a CPU
+     run, max_err < 1e-6; the BGV dot product at N=16384 exact; warm ms
+  I. ProfiledRotation equal to ctx.rotate on the N=4096, N=65536 and
+     N=65536 dnum=3 contexts; the rotation phase profile at N = 2048 ...
+     65536 with 21 limbs, the dnum rows at N=4096 (dnum 1, 2, 3, 4, 6, 8, 12,
+     24) and the composition rows, each row's phases summing to its
+     total_us, printed beside ctx.rotate's kernel total profiled alone
+  J. ops_devtime (n=4096, levels=20, each row's mode) and perf_suite (n=4096,
+     levels=3)
+  K. BSGS: matvec_bsgs and matvec_naive at N=4096, 21 + 1 limbs, d=64, equal
+     to a CPU run, decrypting to M·x within BSGS_LIMIT and to each other
+  L. the roofline (bench/roofline.py) at (4096, 21, 8), (16384, 6, 8) and
+     (65536, 6, 8), with the byte and integer-operation bounds
+Their rows also go to build/h100_profiling/*.csv.
+
 Phase 3 also holds the kernels at those shapes: the t plans (1, 1, 16384)
 at 20 and 17 bits and (1, 1, 4096) at 16, the BEHZ basis (4, 13, 16384) and
 (3, 13, 16384), the chain (4, 10) and (3, 10), and the BGV keyswitch's
@@ -125,8 +146,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from rfhe_tpu_torch.bench import overheads, protected_overhead, real_monitor, sweeps
-from rfhe_tpu_torch.device import (DEVICE_TIMER, card, cuda_ms, device_ms, profile_kernels,
+from rfhe_tpu_torch.bench import (northstar, ops_devtime, overheads, perf_suite, phase_profile,
+                                  protected_overhead, real_monitor, roofline, sweeps)
+from rfhe_tpu_torch.device import (DEVICE_TIMER, MODES, card, cuda_ms, device_ms, profile_kernels,
                                    profiled_us, to_numpy_u32, wall_us)
 from rfhe_tpu_torch.faults import evaluator_campaign
 from rfhe_tpu_torch.faults.campaign import (FAULT_TYPES, four_step_ntt_campaign,
@@ -140,11 +162,14 @@ from rfhe_tpu_torch.fhe.keys import compute_digits
 from rfhe_tpu_torch.fhe.protected import Fault, ProtectedBgv, ProtectedCkks, all_ok
 from rfhe_tpu_torch.fhe.params import make_prime_chain
 from rfhe_tpu_torch.fhe.rns import poly_intt
+from rfhe_tpu_torch.models import bsgs
 from rfhe_tpu_torch.models.dotprod import dot_product_bgv
 from rfhe_tpu_torch.numth import find_ntt_primes
-from rfhe_tpu_torch.ops import ntt_cuda
+from rfhe_tpu_torch.ops import ntt_cuda, ntt_pease
 from rfhe_tpu_torch.ops.ntt import NttPlan, ntt_fwd_reference, ntt_inv_reference
 from rfhe_tpu_torch.profile_rotation import profile_op
+from rfhe_tpu_torch.trace import ProfiledRotation
+from rfhe_tpu_torch.trace.profiled import MODDOWN_PARTS, PHASES
 
 SEAL_ROTATION_US = 14_377.0      # reference: SEAL 4.1 CPU, N=4096, 21 limbs
 SOURCE = "rfhe_tpu_torch/csrc/ntt.cu"
@@ -178,15 +203,25 @@ LIMITS = {4096: (1e-3, 1e-2), 8192: (5e-3, 2e-2), 16384: (2e-2, 2e-2), 32768: (6
           65536: (2e-1, 1e-1)}
 FOURTH_POWER_LIMIT = 2e-1
 
-# The least time the card could take (H100 SXM data sheet): bytes over the
-# memory rate against operations over the peak rate.  The butterflies are
-# 32-bit integer operations, for which the sheet has no row; they are counted
-# against its float32 rate outside the tensor cores, which the integer units
-# do not exceed, so the bound stays a lower bound.
+# The least time the card could take: bytes over the memory rate (H100 SXM
+# data sheet) against operations over the peak rate for their type.  The
+# butterflies are 32-bit integer operations: 64 per clock per SM, 132 SMs, at
+# the SM clock read while a kernel runs (bench/roofline.py, which also counts
+# the operations: 9 per lazy butterfly and 5 per exit product, from
+# csrc/ntt.cu).
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
-OPS_PER_BUTTERFLY = 12           # Shoup product 6, modular add 3, modular sub 3
-OPS_PER_SCALE = 6                # the exit factor: one Shoup product
+_CLOCK = {}
+
+
+def sm_clock() -> float:
+    """The SM clock (MHz) nvidia-smi reads while one-block kernels run back to
+    back, read once."""
+    if "mhz" not in _CLOCK:
+        plan = NttPlan.make(4096, find_ntt_primes(4096, 30, 21), "cuda")
+        x = torch.zeros((8, 21, 4096), dtype=torch.int64, device="cuda")
+        _CLOCK["mhz"] = roofline.sm_clock_mhz(lambda: plan.fwd(x))
+        print(f"[clock] SM clock under a one-block NTT loop: {_CLOCK['mhz']} MHz (median)")
+    return _CLOCK["mhz"]
 
 
 def phase_toolchain() -> str:
@@ -1064,11 +1099,11 @@ def bound_ms(batch: int, L: int, n: int) -> tuple:
     one transform of (batch, L, n) int64 residues.
     Bytes: the input read and the output written once, plus the direction's
     twiddle and Shoup rows of the L limbs (no kernel reads a slot table).
-    Operations: n/2·log2(n) butterflies and n exit products per vector."""
-    log_n = n.bit_length() - 1
+    Operations: n/2·log2(n) butterflies and n exit products per vector, as
+    32-bit integer operations over the integer peak at `sm_clock()`."""
     moved = 2 * 8 * batch * L * n + L * 2 * n * 4
-    ops = batch * L * (n // 2 * log_n * OPS_PER_BUTTERFLY + n * OPS_PER_SCALE)
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    ops = batch * L * roofline.int_ops(n)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / roofline.int_peak(sm_clock()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1259,15 +1294,267 @@ def phase_scheme_times(c: str, bgv: tuple, bfv: tuple) -> dict:
     return times
 
 
+# ---------------------------------------------------------------------------
+# The profiling layer (phases G-L)
+
+PEASE_SHAPES = ((2, 21, 4096), (1, 6, 65536))          # (batch, L, n)
+ROTATION_RINGS = (2048, 4096, 8192, 16384, 32768, 65536)
+PROFILE_LIMBS = 21
+DNUMS = (1, 2, 3, 4, 6, 8, 12, 24)                     # the rows of results/dnum_N4096.csv
+ROOFLINE_SHAPES = ((4096, 21, 8), (16384, 6, 8), (65536, 6, 8))   # (n, limbs, batch)
+BSGS_D = 64                                            # B = G = 8
+# Decryption limit of the matrix-vector products (max abs error of a decoded
+# slot against M·x; M and x uniform in [-1, 1] from default_rng(5), d = 64,
+# at the 21-limb chain's 28-bit scale).  A CPU run of this phase's inputs
+# read 2.2e-3 for the BSGS product (14 rotations and 64 plaintext products of
+# noise, four times one rotation's 5.6e-4), 3.5e-3 for the naive one (63
+# rotations), the two 3.2e-3 apart.  The limit is four times the largest; a
+# wrong product is off by more than 1.
+BSGS_LIMIT = 1.5e-2
+OUT = Path("build") / "h100_profiling"
+
+
+def count_into(total: dict) -> None:
+    """Add the launch counts read now to `total` and set them to 0."""
+    torch.cuda.synchronize()
+    for form, count in ntt_cuda.KERNELS.launches.items():
+        total[form] += count
+    ntt_cuda.KERNELS.reset_counts()
+
+
+def write_rows(name: str, cols: list, rows: list) -> None:
+    OUT.mkdir(parents=True, exist_ok=True)
+    with open(OUT / name, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=cols)
+        w.writeheader()
+        w.writerows(rows)
+
+
+def phase_pease() -> dict:
+    """G. The Pease pipeline on the card against a CPU run, forward and
+    inverse, at (2, 21, 4096) and (1, 6, 65536); then ntt_pease's dispatch
+    on an NttPlan, which must launch K1 (and K2) and equal the plan's
+    transforms, the Pease output being the same evaluations in slot order nu."""
+    launches = dict.fromkeys(ntt_cuda.FORMS, 0)
+    for batch, L, n in PEASE_SHAPES:
+        primes = find_ntt_primes(n, 30, L)
+        x = torch.from_numpy(np.random.default_rng(n).integers(0, min(primes), (batch, L, n)))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            pease = ntt_pease.PeaseNttPlan.make(n, primes, dev)
+            t0 = time.perf_counter()
+            y = ntt_pease.negacyclic_ntt(x.to(dev), pease)
+            back = ntt_pease.negacyclic_intt(y, pease)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            runs[dev] = (y.cpu(), back.cpu(), time.perf_counter() - t0)
+        if not (torch.equal(runs["cuda"][0], runs["cpu"][0])
+                and torch.equal(runs["cuda"][1], runs["cpu"][1]) and torch.equal(runs["cpu"][1], x)):
+            raise RuntimeError(f"Pease ({batch}, {L}, {n}): the card and the CPU differ")
+        plan = NttPlan.make(n, primes, "cuda")
+        xc = x.to("cuda")
+        ntt_cuda.KERNELS.reset_counts()
+        y = ntt_pease.negacyclic_ntt(xc, plan)
+        back = ntt_pease.negacyclic_intt(y, plan)
+        torch.cuda.synchronize()
+        got = dict(ntt_cuda.KERNELS.launches)
+        count_into(launches)
+        large = form_of(kind_of(plan, batch, None))
+        if got["fwd" + large] != 1 or got["inv" + large] != 1:
+            raise RuntimeError(f"ntt_pease on an NttPlan ({batch}, {L}, {n}) launched {got}")
+        if not (torch.equal(y, ntt_fwd_reference(xc, plan)) and torch.equal(back, xc)):
+            raise RuntimeError(f"ntt_pease on an NttPlan ({batch}, {L}, {n}) is not the plan's NTT")
+        nu_p, nu_k = runs["cpu"][0].numpy()[..., pease.nu_inv], y.cpu().numpy()[..., plan.nu_inv]
+        if not np.array_equal(nu_p, nu_k):
+            raise RuntimeError(f"Pease and NttPlan ({batch}, {L}, {n}) hold other evaluations")
+        print(f"[pease] ({batch}, {L}, {n}): forward and inverse on the card equal the CPU "
+              f"(first call {runs['cuda'][2]:.2f} s, CPU {runs['cpu'][2]:.2f} s); "
+              f"negacyclic_ntt/intt on an NttPlan launched {got}, equal to the plain butterflies, "
+              f"and hold the Pease output's evaluations in slot order nu")
+    return launches
+
+
+def phase_northstar() -> dict:
+    """H. Both north-star rows at full size: the CKKS multiply + rescale at
+    N = 65536 (34 + 1 limbs, 2^56 scale) equal to a CPU run of the port with
+    max_err < 1e-6, and the BGV dot product at N = 16384, exact."""
+    launches = dict.fromkeys(ntt_cuda.FORMS, 0)
+    ntt_cuda.KERNELS.reset_counts()
+    row, m = northstar.ckks_row("cuda")
+    count_into(launches)
+    t0 = time.perf_counter()
+    *_, m_cpu = northstar.ckks_case("cpu")
+    count = same_arrays({"rescale(multiply)": m.to_numpy()}, {"rescale(multiply)": m_cpu.to_numpy()},
+                        "north-star CKKS cuda vs cpu")
+    print(f"[northstar] ckks_mult_rescale N={row['n']}, {row['limbs']} + 1 limbs: warm "
+          f"{row['warm_ms']:.3f} ms, max_err {row['max_err']}, setup {row['setup_s']:.1f} s; "
+          f"{count} arrays identical to a CPU run ({time.perf_counter() - t0:.1f} s)")
+    if not row["exact"]:
+        raise RuntimeError(f"north-star CKKS: max_err {row['max_err']} is not below 1e-6")
+    brow, _ = northstar.bgv_row("cuda")
+    count_into(launches)
+    print(f"[northstar] bgv_dotprod N={brow['n']}, {brow['limbs']} limbs: warm "
+          f"{brow['warm_ms']:.3f} ms, exact {brow['exact']}, setup {brow['setup_s']:.1f} s")
+    if not brow["exact"]:
+        raise RuntimeError("north-star BGV dot product is not exact")
+    write_rows("h100_northstar.csv", northstar.COLUMNS, [row, brow])
+    print(f"[northstar] kernel launches: {launches}")
+    return launches
+
+
+def print_profile_row(tag: str, row: dict) -> None:
+    phases = ", ".join(f"{p} {row[p + '_us']:.1f}" for p in PHASES + MODDOWN_PARTS)
+    print(f"[{tag}] n={row['n']} limbs={row['limbs']} dnum={row['dnum'] or '-'}: {phases} us; "
+          f"total_us {row['total_us']:.1f} (the phases' sum), ctx.rotate profiled alone "
+          f"{row['rotate_us']:.1f} us; shares NTT {row['NTT']:.4f} ModMul {row['ModMul']:.4f} "
+          f"BaseConv {row['BaseConv']:.4f} Others {row['Others']:.4f} ({row['mode']}, "
+          f"{row['lost_records']} device records lost)")
+
+
+def phase_profiled(ctxs: dict, cts: dict) -> dict:
+    """I. ProfiledRotation equal to ctx.rotate on the card at N=4096,
+    N=65536 per-limb and N=65536 dnum=3; the rotation rows at N = 2048 ...
+    65536 with 21 limbs, the dnum rows at N = 4096, the composition rows;
+    every row's phases sum to its total_us (phase_profile raises if not)."""
+    launches = dict.fromkeys(ntt_cuda.FORMS, 0)
+    for name in ("N=4096", "N=65536", f"N=65536 dnum={DNUM}"):
+        ctx, ct = ctxs[name], cts[name]
+        ntt_cuda.KERNELS.reset_counts()
+        out = ProfiledRotation(ctx).rotate(ct, 1)
+        count_into(launches)
+        plain = ctx.rotate(ct, 1)
+        if not all(torch.equal(a.data, b.data) for a, b in zip(out.c, plain.c)):
+            raise RuntimeError(f"ProfiledRotation differs from ctx.rotate at {name}")
+        print(f"[profiled] {name}: ProfiledRotation equals ctx.rotate (c0, c1)")
+    ntt_cuda.KERNELS.reset_counts()
+    t0 = time.perf_counter()
+    rows = list(phase_profile.rotation_rows(ROTATION_RINGS, PROFILE_LIMBS, "cuda"))
+    dn_rows = list(phase_profile.dnum_rows(4096, PROFILE_LIMBS, DNUMS, "cuda"))
+    comp = sweeps.composition_rows(4096, 2, 42, "cuda")
+    count_into(launches)
+    for tag, group in (("rotation", rows), ("dnum", dn_rows)):
+        for row in group:
+            print_profile_row(tag, row)
+            phase_sum = sum(row[p + "_us"] for p in PHASES)
+            if abs(phase_sum - row["total_us"]) > 1e-9 * row["total_us"]:
+                raise RuntimeError(f"{tag} row n={row['n']}: phases {phase_sum} != total "
+                                   f"{row['total_us']}")
+    for group, part, share in comp:
+        print(f"[composition] {group} {part}: {share}")
+    write_rows("h100_rotation_profile.csv", phase_profile.COLUMNS, rows)
+    write_rows("h100_dnum_N4096.csv", phase_profile.COLUMNS, dn_rows)
+    write_rows("h100_op_composition.csv", ["group", "part", "share"],
+               [dict(zip(["group", "part", "share"], r)) for r in comp])
+    print(f"[profiled] rows in {time.perf_counter() - t0:.1f} s; kernel launches {launches}")
+    return launches
+
+
+def phase_ops_devtime() -> dict:
+    """J. ops_devtime at its default (n = 4096, levels = 20) with each row's
+    mode, and perf_suite at its defaults."""
+    launches = dict.fromkeys(ntt_cuda.FORMS, 0)
+    ntt_cuda.KERNELS.reset_counts()
+    rows = ops_devtime.measure(4096, 20, "cuda")
+    for row in rows:
+        print(f"[ops_devtime] {row['op']}: {row['us']} us ({row['mode']}, "
+              f"{row['launches'] or '-'} launches)")
+        if row["mode"] not in MODES or (row["us"] in ("", 0.0) and row["mode"] != "device-unresolved"):
+            raise RuntimeError(f"ops_devtime row {row} has no reading")
+    write_rows("h100_ops_devtime.csv", ops_devtime.COLUMNS, rows)
+    for line in perf_suite.lines("all", 4096, 3, 10, "cuda"):
+        print(f"[perf_suite] {line}")
+    count_into(launches)
+    print(f"[ops_devtime] kernel launches {launches}")
+    return launches
+
+
+def bsgs_run(device: str) -> tuple:
+    ctx = CkksContext(CkksParams.make(**BENCH), seed=SEED, device=device)
+    rng = np.random.default_rng(5)
+    M = rng.uniform(-1, 1, (BSGS_D, BSGS_D))
+    x = rng.uniform(-1, 1, BSGS_D)
+    slots = BENCH["n"] // 2
+    ct = ctx.encrypt(*ctx.encode(np.tile(x, slots // BSGS_D) + 0j))
+    t0 = time.perf_counter()
+    yb = bsgs.matvec_bsgs(ctx, M, ct)
+    t1 = time.perf_counter()
+    yn = bsgs.matvec_naive(ctx, M, ct)
+    t2 = time.perf_counter()
+    return ctx, M, x, ct, yb, yn, (t1 - t0, t2 - t1)
+
+
+def phase_bsgs() -> dict:
+    """K. matvec_bsgs and matvec_naive at N = 4096, 21 + 1 limbs, d = 64
+    (B = G = 8: 7 baby and 7 giant rotations; the naive product 63), equal
+    to a CPU run of the port, decrypting to M·x within BSGS_LIMIT, and to
+    each other within it."""
+    launches = dict.fromkeys(ntt_cuda.FORMS, 0)
+    ntt_cuda.KERNELS.reset_counts()
+    ctx, M, x, ct, yb, yn, secs = bsgs_run("cuda")
+    count_into(launches)
+    warm = {name: wall_us(lambda: fn(ctx, M, ct), 3) / 1e3
+            for name, fn in (("bsgs", bsgs.matvec_bsgs), ("naive", bsgs.matvec_naive))}
+    ntt_cuda.KERNELS.reset_counts()
+    t0 = time.perf_counter()
+    *_, yb_cpu, yn_cpu, _ = bsgs_run("cpu")
+    count = same_arrays({"bsgs": yb.to_numpy(), "naive": yn.to_numpy()},
+                        {"bsgs": yb_cpu.to_numpy(), "naive": yn_cpu.to_numpy()},
+                        "BSGS N=4096 cuda vs cpu")
+    want = np.tile(M @ x, BENCH["n"] // 2 // BSGS_D)
+    got_b, got_n = ctx.decrypt_decode(yb), ctx.decrypt_decode(yn)
+    errs = {"bsgs vs M.x": float(np.max(np.abs(got_b - want))),
+            "naive vs M.x": float(np.max(np.abs(got_n - want))),
+            "bsgs vs naive": float(np.max(np.abs(got_b - got_n)))}
+    print(f"[bsgs] N=4096 21+1 limbs, d={BSGS_D}: first calls bsgs {secs[0]:.2f} s, naive "
+          f"{secs[1]:.2f} s (keys included); warm bsgs {warm['bsgs']:.2f} ms, naive "
+          f"{warm['naive']:.2f} ms; {count} arrays identical to a CPU run "
+          f"({time.perf_counter() - t0:.1f} s); "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (limit {BSGS_LIMIT:g})")
+    if not max(errs.values()) <= BSGS_LIMIT:
+        raise RuntimeError(f"BSGS decryption off: {errs}")
+    print(f"[bsgs] kernel launches {launches}")
+    return launches
+
+
+def phase_roofline() -> tuple:
+    """L. The roofline at (4096, 21, 8), (16384, 6, 8) and (65536, 6, 8):
+    the hand kernels in each form the shape takes, the plain butterflies and
+    the Pease pipeline, against the byte and integer-operation bounds.
+    Returns (launches, the SM clock read at the first shape)."""
+    launches = dict.fromkeys(ntt_cuda.FORMS, 0)
+    clock = None
+    all_rows = []
+    ntt_cuda.KERNELS.reset_counts()
+    for n, limbs, batch in ROOFLINE_SHAPES:
+        rows = roofline.measure(n, limbs, batch, device="cuda")
+        for row in rows:
+            if row["us_per_call"] is None:
+                raise RuntimeError(f"roofline {row['impl']} at ({n}, {limbs}, {batch}) is unresolved")
+            print(f"[roofline] ({n}, {limbs}, {batch}) {row['impl']}: {row['us_per_call']:.3f} us "
+                  f"({row['mode']}), {row['butterflies_per_s']} butterflies/s, hbm floor "
+                  f"{row['hbm_floor_pct']:.2f}%, int ops {row['int_ops_peak_pct']:.2f}% of the peak "
+                  f"at {row['sm_mhz']} MHz; bounds: bytes {row['bytes_bound_us']:.3f} us, "
+                  f"operations {row['ops_bound_us']:.3f} us -> {row['bound_by']}")
+        clock = clock or rows[0]["sm_mhz"]
+        all_rows += rows
+    count_into(launches)
+    write_rows("h100_roofline.csv", roofline.COLUMNS, all_rows)
+    print(f"[roofline] ops per butterfly {roofline.OPS_PER_BUTTERFLY} (lazy, from csrc/ntt.cu), "
+          f"{roofline.OPS_PER_EXIT} per exit product; integer peak "
+          f"{roofline.INT_OPS_PER_CLOCK_PER_SM} x {roofline.SMS} x SM clock; kernel launches {launches}")
+    return launches, clock
+
+
 def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
-                   scheme: dict, faults: dict) -> list:
+                   scheme: dict, faults: dict, profiling: dict) -> list:
     """One record per kernel form at its path's keyswitch shape, in the form
     that shape takes by itself, with every other shape and form timed in this
     run under `other_shapes`.  `ms` is the device timer's reading, `paced_ms`
     the host-paced one.  `launches` counts every counted path;
-    `launches_protected`, `launches_bgv_bfv` and `launches_faults` are the
-    shares of the protected paths and campaigns, of the BGV, BFV and
-    ProtectedBgv paths, and of the fault campaigns and the monitor."""
+    `launches_protected`, `launches_bgv_bfv`, `launches_faults` and
+    `launches_profiling` are the shares of the protected paths and campaigns,
+    of the BGV, BFV and ProtectedBgv paths, of the fault campaigns and the
+    monitor, and of the profiling layer (phases G-L)."""
     records = []
     for d in ("fwd", "inv"):
         for large, key in (("", "4096"), ("_large", "65536")):
@@ -1280,6 +1567,7 @@ def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
                             "launches_protected": protected[d + large],
                             "launches_bgv_bfv": scheme[d + large],
                             "launches_faults": faults[d + large],
+                            "launches_profiling": profiling[d + large],
                             "max_abs_err": err[d + large], "ms": head["ms"],
                             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                             "bound_by": head["bound_by"], "library_ms": None,
@@ -1325,22 +1613,32 @@ def main() -> None:
     for path in (phase_flip_impact(), phase_dotprod_campaign(), phase_monitor()):
         for form, count in path.items():
             faults[form] += count
-    for form in launches:
-        launches[form] += protected[form] + scheme[form] + faults[form]
-    print(f"[main] kernel launches over all counted paths: {launches}, of which on the protected "
-          f"CKKS paths and the campaigns {protected}, on the BGV, BFV and ProtectedBgv paths "
-          f"{scheme}, in the fault campaigns and the monitor {faults}")
-    print(f"[main] on the N=4096 and the two N=65536 paths, by the kernels that ran: {by_kernels}; "
-          f"protected: {prot_kernels}")
-    if min(launches.values()) == 0 or min(by_kernels.values()) == 0:
-        raise RuntimeError(f"kernels that no path launched: {launches}, {by_kernels}")
     cts = phase_counts(ctxs)
     phase_overheads(c)
     phase_atom_overheads(c)
     times = phase_times(ctxs, cts, c)
     times.update(phase_scheme_times(c, bgv, bfv))
     times.update(phase_fault_times(c))
-    print(json.dumps({"kernels": kernel_records(err, launches, times, protected, scheme, faults)}))
+    # the profiling layer (phases G-L), last: a long process's torch.profiler
+    # sessions lose device records (device.padded_profile), more the more
+    # sessions came before, so the earlier phases run before this layer's
+    profiling = dict.fromkeys(ntt_cuda.FORMS, 0)
+    for run in (phase_pease, phase_northstar, lambda: phase_profiled(ctxs, cts),
+                phase_ops_devtime, phase_bsgs, lambda: phase_roofline()[0]):
+        for form, count in run().items():
+            profiling[form] += count
+    for form in launches:
+        launches[form] += protected[form] + scheme[form] + faults[form] + profiling[form]
+    print(f"[main] kernel launches over all counted paths: {launches}, of which on the protected "
+          f"CKKS paths and the campaigns {protected}, on the BGV, BFV and ProtectedBgv paths "
+          f"{scheme}, in the fault campaigns and the monitor {faults}, in the profiling layer "
+          f"{profiling}")
+    print(f"[main] on the N=4096 and the two N=65536 paths, by the kernels that ran: {by_kernels}; "
+          f"protected: {prot_kernels}")
+    if min(launches.values()) == 0 or min(by_kernels.values()) == 0:
+        raise RuntimeError(f"kernels that no path launched: {launches}, {by_kernels}")
+    print(json.dumps({"kernels": kernel_records(err, launches, times, protected, scheme, faults,
+                                                profiling)}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

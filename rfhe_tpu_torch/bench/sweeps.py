@@ -9,6 +9,12 @@ defaults, plus `--device` (default cuda):
   ntt_err    error propagation through the forward NTT (the hand kernels
              on a GPU) against flips and corrupted words
   dotprod    ciphertext flips through the encrypted BGV dot product
+  rotation   the rotation's phase breakdown against the ring
+             (bench/phase_profile.py), 2^logn_min ... 2^logn_max, levels+1
+             ciphertext limbs
+  dnum       the same against dnum at N (4096 when N <= 256)
+  composition  the encrypted dot product's evaluator-op shares and the
+             rotation's phase shares at N (4096 when N <= 256)
 
 Each sweep's rows come from a generator (`pbits_rows`, `relia_ntt_rows`,
 `ntt_err_rows`, `dotprod_rows`) that chip_smoke.py drives too.  Output files
@@ -26,6 +32,8 @@ import os
 import random
 import time
 from pathlib import Path
+
+from ..device import require
 
 PBITS_HEADER = ["ftype", "pbits", "stage", "injected", "undetected", "collision_prob"]
 RELIA_HEADER = ["qbits", "kind", "det_rate", "miss_rate", "miss_stage1", "miss_stage2",
@@ -93,13 +101,48 @@ def dotprod_rows(bgv, max_bits: int, max_symbols: int, seed: int):
                res["dot_hamming"]], res
 
 
-def _prefix(device: str) -> str:
-    return "h100_" if device.startswith("cuda") else f"{device}_"
+def prefix(device) -> str:
+    """Output files carry the device they ran on: h100_ on the card, cpu_ on the CPU."""
+    return "h100_" if str(device).startswith("cuda") else f"{device}_"
+
+
+def composition_rows(n: int, levels: int, seed: int, device):
+    """Rows (group, part, share) of the measured op composition
+    (build/data/draw_pie_chart.py analog, `rfhe_tpu.bench.sweeps.sweep_composition`):
+    group 'dotprod' = the evaluator ops of the encrypted dot product
+    (log2(slots) rotations and adds, one multiply+relin, one rescale), each
+    at its device time; group 'rotate' = the rotation's phases
+    (`phase_profile.phase_times`, MD_* left out: they decompose MODDOWN).
+    The reference gets the rescale as (multiply+rescale) − multiply, its
+    bodies being shape-preserving; eager PyTorch times the rescale of a
+    product directly."""
+    import numpy as np
+    from ..device import op_us
+    from ..fhe import CkksContext, CkksParams
+    from ..trace.profiled import PHASES
+    from .phase_profile import phase_times
+    ckks = CkksContext(CkksParams.make(n=n, levels=levels + 2, q0_bits=30, scale_bits=26),
+                       seed=seed, device=device)
+    z = np.random.default_rng(0).uniform(-1, 1, n // 2) + 0j
+    ct = ckks.encrypt(*ckks.encode(z))
+    ckks.rlk, ckks.galois_key(ckks.rotation_galois_element(1))      # keys before any timing
+    prod = ckks.multiply_relin(ct, ct)
+    t = lambda fn: op_us(fn, device)[0]
+    n_rot = (n // 2).bit_length() - 1
+    costs = {"Rotate": n_rot * t(lambda: ckks.rotate(ct, 1)),
+             "HMul+Relin": t(lambda: ckks.multiply_relin(ct, ct)),
+             "Rescale": t(lambda: ckks.rescale(prod)),
+             "Add": n_rot * t(lambda: ckks.add(ct, ct))}
+    tot = sum(costs.values())
+    ph = phase_times(ckks, ct.level)
+    rtot = sum(ph[p] for p in PHASES)
+    return ([["dotprod", k, f"{v / tot:.4f}"] for k, v in costs.items()]
+            + [["rotate", p, f"{ph[p] / rtot:.4f}"] for p in PHASES])
 
 
 def _write(args, name: str, header, rows, tag: str) -> str:
     Path(args.out).mkdir(parents=True, exist_ok=True)
-    path = os.path.join(args.out, _prefix(args.device) + name)
+    path = os.path.join(args.out, prefix(args.device) + name)
     with open(path, "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(header)
@@ -142,11 +185,48 @@ def sweep_dotprod(args) -> str:
     return _write(args, f"dotprod_N{args.N}.csv", DOTPROD_HEADER, rows, "dotprod")
 
 
+def _ring(args) -> int:
+    return args.N if args.N > 256 else 4096
+
+
+def _dict_rows(rows, cols):
+    return ([r[c] for c in cols] for r in rows)
+
+
+def sweep_rotation(args) -> str:
+    """Rotation phase breakdown against the ring (draw_rotation.py analog)."""
+    from . import phase_profile
+    ns = [1 << g for g in range(args.logn_min, args.logn_max + 1)]
+    rows = phase_profile.rotation_rows(ns, args.levels + 1, args.device)
+    return _write(args, "rotation_profile.csv", phase_profile.COLUMNS,
+                  _dict_rows(rows, phase_profile.COLUMNS), "rotation")
+
+
+def sweep_dnum(args) -> str:
+    """Rotation cost breakdown against dnum (draw_dnum.py analog): fewer
+    digits, fewer NTTs but heavier base conversion and mod-down."""
+    from . import phase_profile
+    n = _ring(args)
+    dnums = [int(v) for v in args.dnums.split(",")]
+    rows = phase_profile.dnum_rows(n, args.levels + 1, dnums, args.device)
+    return _write(args, f"dnum_N{n}.csv", phase_profile.COLUMNS,
+                  _dict_rows(rows, phase_profile.COLUMNS), "dnum")
+
+
+def sweep_composition(args) -> str:
+    return _write(args, "op_composition.csv", ["group", "part", "share"],
+                  composition_rows(_ring(args), args.levels, args.seed, args.device),
+                  "composition")
+
+
 SWEEPS = {
     "pbits": sweep_pbits,
     "relia_ntt": sweep_relia_ntt,
     "ntt_err": sweep_ntt_err,
     "dotprod": sweep_dotprod,
+    "rotation": sweep_rotation,
+    "dnum": sweep_dnum,
+    "composition": sweep_composition,
 }
 
 
@@ -170,8 +250,13 @@ def main(argv=None) -> None:
     ap.add_argument("--max-flips", type=int, default=8)
     ap.add_argument("--max-symbols", type=int, default=4)
     ap.add_argument("--max-bits", type=int, default=8)
+    ap.add_argument("--logn-min", type=int, default=8)
+    ap.add_argument("--logn-max", type=int, default=12)
+    ap.add_argument("--levels", type=int, default=2)
+    ap.add_argument("--dnums", type=str, default="1,2,3,4,6,8,12,24")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
+    require(args.device)
     t0 = time.time()
     SWEEPS[args.name](args)
     print(f"[{args.name}] done in {time.time() - t0:.1f}s")

@@ -143,29 +143,100 @@ def device_ms(fn, reps: int = 20) -> float:
                        f"(blocker {block_ms / 2:.1f} ms)")
 
 
+# Launches per call up to which `device_ms` reads an op: it queues 20 calls
+# behind its blocker, and about a thousand launches fit the card's queue.
+QUEUED_LAUNCHES = 40
+MODES = ("device-timer", "device-profiler", "wall", "device-unresolved")
+
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
+_PAD_KERNEL = "spin_kernel"          # torch.cuda._sleep's kernel
+MEASURED = "measured"
+
+
+@contextlib.contextmanager
+def padded_profile():
+    """torch.profiler over the block (CPU and CUDA activities), the block in a
+    record_function range MEASURED, with three short spin kernels run and
+    waited for before and after it.  In a long process a session has lost the
+    device records of a few of its launches, up to all five of a short
+    session (seen in chip_smoke.py): the padding takes the first and
+    last places, and `device_records` counts what is lost."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(3):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        with torch.profiler.record_function(MEASURED):
+            yield prof
+            torch.cuda.synchronize()
+        for _ in range(3):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+
+
+def device_records(events, skip=()) -> tuple:
+    """(the device records of a `padded_profile` but the padding, the user
+    annotations and names in `skip`; the kernel launches made inside
+    MEASURED; how many of those left no device record).  A record and its
+    launch share a correlation id; the launches are host records, which the
+    sessions that lost device records kept."""
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in events
+             if ev.device_type == torch.autograd.DeviceType.CPU and ev.name == MEASURED]
+    device = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA
+              and ev.name != MEASURED and ev.name not in skip and _PAD_KERNEL not in ev.name
+              and not getattr(ev, "is_user_annotation", False)]
+    seen = {ev.id for ev in device}
+    launches = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CPU
+                and ev.name.startswith(_LAUNCH_CALLS)
+                and any(s <= ev.time_range.start <= e for s, e in spans)]
+    return device, len(launches), sum(1 for ev in launches if ev.id not in seen)
+
+
+def _profile(fn, reps: int, match: str = "", between=None) -> tuple:
+    """(µs of the kernels matching `match`, their records, kernel launches,
+    lost records) per call over `reps` calls, from the most complete of up to
+    three `padded_profile` sessions, a short pause before each retry (a
+    process that has begun to lose records mostly keeps losing them)."""
+    fn()
+    best = None
+    for attempt in range(3):
+        time.sleep(0.1 * attempt)
+        torch.cuda.synchronize()
+        with padded_profile() as prof:
+            for _ in range(reps):
+                if between is not None:
+                    between()
+                fn()
+        device, launched, lost = device_records(prof.events())
+        kernels = [ev for ev in device if match in ev.name]
+        total = sum(ev.device_time_total for ev in kernels)
+        if (total > 0 or launched) and (best is None or lost < best[3]):
+            best = (total / reps, len(kernels) / reps, launched / reps, lost)
+        if best is not None and best[3] == 0:
+            return best
+    if best is None:
+        raise RuntimeError("the profiler recorded neither a kernel nor a launch")
+    print(f"[profile] each of three profiles lost device records; the most complete lost "
+          f"{best[3]} of {best[2] * reps:.0f} launches, its kernel sum is short by as much")
+    return best
+
+
 def profile_kernels(fn, reps: int = 20, match: str = "", between=None) -> tuple:
     """(device microseconds, kernel launches) per call of `fn` by
     torch.profiler: the sum of the own durations of its kernels whose names
     contain `match`, without the gaps between them, and how many ran.
     `between`, if given, is called before every call of `fn` (to evict the
-    L2, say); its kernels count only if they match too.  A profile that comes
-    back without a device event (it happens when profiles follow each other
-    closely) is taken again, three times at most."""
-    fn()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=activities) as prof:
-            for _ in range(reps):
-                if between is not None:
-                    between()
-                fn()
-            torch.cuda.synchronize()
-        kernels = [ev for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA and match in ev.name]
-        total = sum(ev.device_time_total for ev in kernels)
-        if total > 0:
-            return total / reps, len(kernels) / reps
+    L2, say); its kernels count only if they match too.  A session that lost
+    device records is taken again (`_profile`).  If every session kept no
+    device record of a call's few launches (seen for the hand kernels late in
+    a long process), the device timer reads the call instead, and says so."""
+    us, kernels, launched, _ = _profile(fn, reps, match, between)
+    if us > 0:
+        return us, kernels
+    if 0 < launched <= QUEUED_LAUNCHES and not match and between is None:
+        print(f"[profile] the profiler kept no device record of the call's {launched:.0f} "
+              f"launches in three sessions; read by the device timer (device_ms) instead")
+        return device_ms(fn, reps) * 1e3, launched
     raise RuntimeError(f"the profiler recorded no device time for kernels matching {match!r}")
 
 
@@ -185,3 +256,64 @@ def wall_us(fn, reps: int = 20) -> float:
         fn()
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e6
+
+
+def resolve_reading(measure, reps: int, escalations: int = 2):
+    """The first nonzero reading of `measure(reps)`, with reps multiplied by
+    4 after each zero, `escalations` times (the reference's adaptive
+    escalation, `rfhe_tpu/bench/ops_devtime.py:40-47`).  Returns (reading,
+    resolved); an op that still reads 0 is not resolved, and its reading is
+    None, never a bare 0.0."""
+    for _ in range(escalations + 1):
+        v = measure(reps)
+        if v > 0.0:
+            return v, True
+        reps *= 4
+    return None, False
+
+
+def op_us(fn, device, reps: int = 20) -> tuple:
+    """(microseconds per call or None, mode, launches per call) of `fn` on
+    `device`.  On a CUDA device the op's kernel launches, counted from the
+    host's launch records in a torch.profiler session, pick the method: up to QUEUED_LAUNCHES, `device_ms` ('device-timer');
+    above, the profiler's kernel sum ('device-profiler'); a reading that stays
+    0 is 'device-unresolved'.  On the CPU the host clock per call ('wall',
+    launches None): no device metric is read there."""
+    if torch.device(device).type != "cuda":
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e6, "wall", None
+    first, _, launches, _ = _profile(fn, reps)
+    if launches <= QUEUED_LAUNCHES:
+        us, ok = resolve_reading(lambda r: device_ms(fn, r) * 1e3, reps)
+        mode = "device-timer"
+    else:
+        readings = [first]
+        us, ok = resolve_reading(lambda r: readings.pop() if readings else profiled_us(fn, r), reps)
+        mode = "device-profiler"
+    return us, (mode if ok else "device-unresolved"), launches
+
+
+def host_us(fn, device, iters: int = 50) -> float:
+    """Host microseconds per call over `iters` calls queued back to back, the
+    device waited for before the clock stops (the reference's wall rows)."""
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
+def require(device) -> torch.device:
+    """`device` as a torch.device; raises if it is a CUDA device and there is
+    none (a measurement never falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"no CUDA device: this measures on the card (pass --device cpu to run "
+                         f"the plain versions on the CPU)")
+    return dev

@@ -321,3 +321,42 @@ def test_overhead_atoms_match_cpu(cuda):
             a, b = fn_card(), fn_cpu()
             a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
             assert all(torch.equal(x.cpu(), y) for x, y in zip(a, b)), name
+
+
+@pytest.mark.parametrize("n, L", [(1024, 3), (4096, 21)])
+def test_pease_matches_cpu(cuda, n, L):
+    """The Pease pipeline on the card equals a CPU run; on an NttPlan the
+    dispatch launches K1 / K2 and equals the plan's transforms."""
+    from rfhe_tpu_torch.ops import ntt_pease
+
+    primes = find_ntt_primes(n, 30, L)
+    x = torch.randint(0, min(primes), (2, L, n), generator=torch.Generator().manual_seed(n))
+    out = []
+    for dev in (cuda, "cpu"):
+        plan = ntt_pease.PeaseNttPlan.make(n, primes, dev)
+        y = ntt_pease.negacyclic_ntt(x.to(dev), plan)
+        out.append((y.cpu(), ntt_pease.negacyclic_intt(y, plan).cpu()))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    assert torch.equal(out[0][1], x)
+    plan = NttPlan.make(n, primes, cuda)
+    before = ntt_cuda.KERNELS.fwd_launches
+    assert torch.equal(ntt_pease.negacyclic_ntt(x.to(cuda), plan), plan.fwd(x.to(cuda)))
+    assert ntt_cuda.KERNELS.fwd_launches == before + 2
+
+
+@pytest.mark.parametrize("dnum", [None, 2])
+def test_profiled_rotation_matches_cpu(cuda, dnum):
+    """ProfiledRotation on the card equals ctx.rotate there and a CPU run of
+    the same seed."""
+    import numpy as np
+    from rfhe_tpu_torch.fhe import CkksContext, CkksParams
+    from rfhe_tpu_torch.trace import ProfiledRotation
+
+    runs = []
+    for dev in (cuda, "cpu"):
+        ctx = CkksContext(CkksParams.make(n=1024, levels=3), seed=3, dnum=dnum, device=dev)
+        ct = ctx.encrypt(*ctx.encode(np.random.default_rng(7).normal(size=512)))
+        out, plain = ProfiledRotation(ctx).rotate(ct, 1), ctx.rotate(ct, 1)
+        assert all(torch.equal(a.data, b.data) for a, b in zip(out.c, plain.c))
+        runs.append([c.data.cpu() for c in out.c])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -37,6 +37,12 @@ def test_import_without_jax():
         "import rfhe_tpu_torch.faults.inject, rfhe_tpu_torch.faults.campaign\n"
         "import rfhe_tpu_torch.faults.hardware, rfhe_tpu_torch.bench.real_monitor\n"
         "import rfhe_tpu_torch.bench.sweeps, rfhe_tpu_torch.bench.overheads\n"
+        "import rfhe_tpu_torch.ops.ntt_pease, rfhe_tpu_torch.trace, rfhe_tpu_torch.models.bsgs\n"
+        "import rfhe_tpu_torch.trace.markers, rfhe_tpu_torch.trace.analyze\n"
+        "import rfhe_tpu_torch.trace.profiled, rfhe_tpu_torch.trace.cost\n"
+        "import rfhe_tpu_torch.bench.phase_profile, rfhe_tpu_torch.bench.ops_devtime\n"
+        "import rfhe_tpu_torch.bench.perf_suite, rfhe_tpu_torch.bench.northstar\n"
+        "import rfhe_tpu_torch.bench.roofline\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items()\n"
         "       if mod is not None and m.split('.')[0] in ('jax', 'rfhe_tpu')]\n"
