@@ -122,6 +122,31 @@ modules), last, after phase 13:
      (65536, 6, 8), with the byte and integer-operation bounds
 Their rows also go to build/h100_profiling/*.csv.
 
+The reduction and control campaigns, the native engine, the grid audit and
+the motivation demos, after phase L:
+  M. the shape-grid audit (bench/fused_validate.py): n = 512 ... 65536 x
+     prime mixes 31+30, 30x3, 28x2, batch 5, every form of each ring
+     (one-block up to 8192, two passes and cluster kernels everywhere, n=65536
+     at 31+30 included), K1, K2 and the round trip bit-exact against the plain
+     butterflies; each row printed, written to build/h100_profiling/
+  N. StackedNttPlan ntt / intt / poly_mul_negacyclic at (2, 3, 4096) equal to
+     a CPU run; standard_ntt_campaign for every scenario x {mult, storage} at
+     n=64 (q = 3457) and one scenario per target at n=4096, T=1000, seed 42,
+     each dict equal to a CPU run
+  O. the reduction sweeps: montgomery (21 rows) and barrett_final (112) at
+     T=300, vec 1024, seed 42; barrett_fold MOF at T=1000 (36 rows) and at
+     T=10000 for fold widths 2 and 24; outer_check at fold_k 4 and 8 (T=2000,
+     vec 256): every row equal to the reference's current output, pinned in
+     rfhe_tpu_torch/bench/reference_now.json; the committed rows the reference
+     itself no longer gives printed; wall per campaign, host draws, device
+     draws and the rest, and peak device memory
+  P. the native engine (native.py) built into build/native/, its four
+     functions at the reference tests' settings within their bounds, each run
+     twice with identical counts
+  Q. the motivation demos' six dicts equal to the reference's, and
+     plaintext_perturb (BGV n=256 through the one-block kernels) equal to a
+     CPU run
+
 Phase 3 also holds the kernels at those shapes: the t plans (1, 1, 16384)
 at 20 and 17 bits and (1, 1, 4096) at 16, the BEHZ basis (4, 13, 16384) and
 (3, 13, 16384), the chain (4, 10) and (3, 10), and the BGV keyswitch's
@@ -129,7 +154,8 @@ at 20 and 17 bits and (1, 1, 4096) at 16, the BEHZ basis (4, 13, 16384) and
 
 Launch counts are set to 0 just before each path (the protected ones
 included) and read just after; the kernel records carry their sum and the
-protected paths' share.
+shares of the protected paths, the schemes, the campaigns, the profiling
+layer, the grid audit and the motivation demos.
 The third-to-last line is the per-kernel JSON record, the second-to-last
 names the card and its power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -139,6 +165,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import json
+import os
 import tempfile
 import time
 from pathlib import Path
@@ -146,11 +173,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from rfhe_tpu_torch.bench import (northstar, ops_devtime, overheads, perf_suite, phase_profile,
-                                  protected_overhead, real_monitor, roofline, sweeps)
+from rfhe_tpu_torch import native
+from rfhe_tpu_torch.bench import (fused_validate, northstar, ops_devtime, overheads, perf_suite,
+                                  phase_profile, protected_overhead, real_monitor, roofline, sweeps)
 from rfhe_tpu_torch.device import (DEVICE_TIMER, MODES, card, cuda_ms, device_ms, profile_kernels,
                                    profiled_us, to_numpy_u32, wall_us)
-from rfhe_tpu_torch.faults import evaluator_campaign
+from rfhe_tpu_torch.faults import evaluator_campaign, ntt_control, reduction_campaigns
 from rfhe_tpu_torch.faults.campaign import (FAULT_TYPES, four_step_ntt_campaign,
                                             four_step_scenario_table, three_stage_campaign)
 from rfhe_tpu_torch.faults.hardware import dotprod_fault_campaign
@@ -162,10 +190,10 @@ from rfhe_tpu_torch.fhe.keys import compute_digits
 from rfhe_tpu_torch.fhe.protected import Fault, ProtectedBgv, ProtectedCkks, all_ok
 from rfhe_tpu_torch.fhe.params import make_prime_chain
 from rfhe_tpu_torch.fhe.rns import poly_intt
-from rfhe_tpu_torch.models import bsgs
+from rfhe_tpu_torch.models import bsgs, motivation
 from rfhe_tpu_torch.models.dotprod import dot_product_bgv
-from rfhe_tpu_torch.numth import find_ntt_primes
-from rfhe_tpu_torch.ops import ntt_cuda, ntt_pease
+from rfhe_tpu_torch.numth import find_ntt_prime, find_ntt_primes
+from rfhe_tpu_torch.ops import ntt_cuda, ntt_pease, ntt_stacked
 from rfhe_tpu_torch.ops.ntt import NttPlan, ntt_fwd_reference, ntt_inv_reference
 from rfhe_tpu_torch.profile_rotation import profile_op
 from rfhe_tpu_torch.trace import ProfiledRotation
@@ -1545,16 +1573,258 @@ def phase_roofline() -> tuple:
     return launches, clock
 
 
+# ---------------------------------------------------------------------------
+# The reduction and control campaigns, the native engine, the grid audit and
+# the motivation demos (phases M-Q)
+
+CONTROL_N, CONTROL_T, CONTROL_LARGE_N = 64, 1000, 4096
+STACKED_SHAPE = (2, 3, 4096)                           # (batch, L, n)
+# outer_check_campaign at fold_k 4 and 8, T=2000, vec 256 (seed 4, its default)
+OUTER = dict(ks=(4, 8), trials=2000, vec=256)
+BARRETT_FOLD_CSV = "barrett_fold_MOF_T10000.csv"
+MONTGOMERY_CSV = "montgomery_T300.csv"
+BARRETT_FINAL_CSV = "barrett_final_T300.csv"
+
+
+def reference_now() -> dict:
+    """The reference's current outputs at the sweeps' settings, computed with
+    rfhe_tpu on the CPU and pinned in the port (bench/reference_now.json)."""
+    with open(Path(sweeps.__file__).with_name("reference_now.json")) as f:
+        return json.load(f)
+
+
+def _fmt_fold(key: str, d: dict) -> list:
+    return key.split(",") + [f"{d['detection_rate']:.4f}", str(d["TP"]), str(d["FP"]),
+                             str(d["TN"]), str(d["FN"])]
+
+
+def _fmt_mont(key: str, d: dict) -> list:
+    return key.split(",") + [f"{d['detection_rate']:.4f}"]
+
+
+def _fmt_final(key: str, d: dict) -> list:
+    return key.split(",") + [f"{d['miss_rate']:.6f}", str(d["det_intra_only"]),
+                             str(d["det_sum_only"]), str(d["det_both"]), str(d["undetected"])]
+
+
+def phase_grid() -> tuple:
+    """M. The shape-grid audit (bench/fused_validate.py): the 24 (n, prime mix)
+    points of the reference's grid, batch 5, every form of each ring (one-block
+    up to n = 8192, two passes and cluster kernels at every n), K1, K2 of its
+    output and the round trip bit for bit against the plain butterflies;
+    its rows go to build/h100_profiling/."""
+    path = OUT / "h100_fused_validate_grid.csv"
+    ntt_cuda.KERNELS.reset_counts()
+    t0 = time.perf_counter()
+    rc = fused_validate.run(path, "cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, by_kernels = dict(ntt_cuda.KERNELS.launches), dict(ntt_cuda.KERNELS.by_kernels)
+    ntt_cuda.KERNELS.reset_counts()
+    with open(path, newline="") as f:
+        rows = [{k: int(v) if k not in ("bits", "form") else v for k, v in r.items()}
+                for r in csv.DictReader(f)]
+    bad = [r for r in rows if not (r["fwd_ok"] and r["inv_ok"] and r["roundtrip_ok"])]
+    points = {(r["n"], r["bits"]) for r in rows}
+    per_point = {p: sorted(r["form"] for r in rows if (r["n"], r["bits"]) == p) for p in points}
+    want = lambda n: sorted(fused_validate.forms(n))
+    if rc or bad or len(points) != 24 or any(f != want(n) for (n, _), f in per_point.items()):
+        raise RuntimeError(f"grid audit: {len(bad)} mismatching rows {bad[:3]}, {len(points)} points")
+    print(f"[grid] {len(rows)} rows at {len(points)} points, every form bit-exact (n=65536 at "
+          f"31+30 in both large-ring forms) in {secs:.2f} s; launches {launches}, by kernels "
+          f"{by_kernels}")
+    return launches
+
+
+def phase_control() -> None:
+    """N. The radix-2 plans (ops/ntt_stacked.py) on the card against a CPU
+    run, and the standard-NTT control campaign: every scenario x {mult,
+    storage} at n=64 and one scenario per target at n=4096, T=1000, seed 42,
+    each dict equal to a CPU run."""
+    batch, L, n = STACKED_SHAPE
+    primes = find_ntt_primes(n, 30, L)
+    rng = np.random.default_rng(9)
+    x, y = (torch.from_numpy(rng.integers(0, min(primes), STACKED_SHAPE)) for _ in range(2))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        plan = ntt_stacked.StackedNttPlan.make(n, primes, dev)
+        xd, yd = x.to(dev), y.to(dev)
+        fwd = ntt_stacked.ntt(xd, plan)
+        outs[dev] = [t.cpu() for t in (fwd, ntt_stacked.intt(fwd, plan),
+                                       ntt_stacked.poly_mul_negacyclic(xd, yd, plan))]
+    if not all(torch.equal(a, b) for a, b in zip(outs["cuda"], outs["cpu"])):
+        raise RuntimeError(f"StackedNttPlan {STACKED_SHAPE}: the card and the CPU differ")
+    print(f"[stacked] StackedNttPlan ntt, intt and poly_mul_negacyclic at {STACKED_SHAPE} on the "
+          f"card equal a CPU run")
+    cases = [(CONTROL_N, sc, target) for sc in ntt_control.SCENARIOS for target in ("mult", "storage")]
+    cases += [(CONTROL_LARGE_N, "SBF", "mult"), (CONTROL_LARGE_N, "MLF", "storage")]
+    for n, sc, target in cases:
+        q = find_ntt_prime(n, 12 if n == CONTROL_N else 30, negacyclic=False)
+        t0 = time.perf_counter()
+        card_res = ntt_control.standard_ntt_campaign(sc, target, CONTROL_T, n, q, 42, "cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        cpu_res = ntt_control.standard_ntt_campaign(sc, target, CONTROL_T, n, q, 42, "cpu")
+        print(f"[control] n={n} q={q} {json.dumps(card_res)} ({secs * 1e3:.1f} ms on the card)")
+        if card_res != cpu_res:
+            raise RuntimeError(f"control campaign {sc} {target} n={n}: card {card_res}, CPU {cpu_res}")
+    print(f"[control] {len(cases)} campaigns of {CONTROL_T} trials equal to a CPU run, dict for dict")
+
+
+def _campaign_walls(tag: str, timings: list, peak: int) -> None:
+    wall = sum(t["wall_s"] for t in timings)
+    host = sum(t["host_draw_s"] for t in timings)
+    dev = sum(t["device_draw_s"] for t in timings)
+    print(f"[{tag}] {len(timings)} campaigns in {wall:.2f} s: per campaign {wall / len(timings) * 1e3:.1f}"
+          f" ms, of which host draws {host / len(timings) * 1e3:.1f} ms, device draws "
+          f"{dev / len(timings) * 1e3:.1f} ms (the device waited for), the rest (device ops and "
+          f"their launches) {(wall - host - dev) / len(timings) * 1e3:.1f} ms; peak device memory "
+          f"{peak / 2**20:.0f} MiB")
+
+
+def _sweep(tag: str, rows_fn, want: list) -> list:
+    """Run one sweep's rows on the card against `want`, printing its walls."""
+    timings = []
+    torch.cuda.reset_peak_memory_stats()
+    rows = [[str(v) for v in r] for r in rows_fn(timings)]
+    torch.cuda.synchronize()
+    for r, t in zip(rows, timings):          # one campaign a row
+        print(f"[{tag}] {','.join(r)}  ({t['wall_s'] * 1e3:.1f} ms: host draws "
+              f"{t['host_draw_s'] * 1e3:.1f}, device draws {t['device_draw_s'] * 1e3:.1f})")
+    _campaign_walls(tag, timings, torch.cuda.max_memory_allocated())
+    if rows != want:
+        bad = [(r, w) for r, w in zip(rows, want) if r != w]
+        raise RuntimeError(f"{tag}: {len(bad)} rows differ from the reference's: {bad[:3]}")
+    return rows
+
+
+def phase_reduction() -> None:
+    """O. The reduction sweeps on the card: montgomery (21 rows) and
+    barrett_final (112) at the CLI's defaults (T=300, vec 1024, seed 42),
+    barrett_fold MOF at T=1000 (36 rows) and at T=10000 for fold widths 2 and
+    24 (the rows of results/barrett_fold_MOF_T10000.csv), outer_check at
+    fold_k 4 and 8 (T=2000, vec 256): every row equal to the reference's
+    current output (bench/reference_now.json); the committed rows that the
+    reference itself no longer gives are printed."""
+    pins = reference_now()
+    mont = {tuple(k.split(",")): _fmt_mont(k, d) for k, d in pins["montgomery_T300"].items()}
+    _sweep("montgomery", lambda t: sweeps.montgomery_rows(300, 1024, 42, "cuda", t), list(mont.values()))
+    final = {tuple(k.split(",")): _fmt_final(k, d) for k, d in pins["barrett_final_T300"].items()}
+    _sweep("barrett_final", lambda t: sweeps.barrett_final_rows(300, 1024, 42, "cuda", t),
+           list(final.values()))
+    fold = [_fmt_fold(k, d) for k, d in pins["barrett_fold_MOF_T1000"].items()]
+    _sweep("barrett_fold T=1000", lambda t: sweeps.barrett_fold_rows(
+        1000, 1024, 1, 42, "MOF", range(2, 25, 2), "cuda", t), fold)
+    fold10k = {tuple(k.split(",")): _fmt_fold(k, d) for k, d in pins["barrett_fold_MOF_T10000"].items()}
+    _sweep("barrett_fold T=10000", lambda t: sweeps.barrett_fold_rows(
+        10000, 1024, 1, 42, "MOF", (2, 24), "cuda", t), list(fold10k.values()))
+    committed = [r for r in committed_rows(BARRETT_FOLD_CSV) if r[0] in ("2", "24")]
+    print(f"[stale] {BARRETT_FOLD_CSV}: rows at fold widths 2 and 24 "
+          f"{'equal' if committed == list(fold10k.values()) else 'differ from'} the card's "
+          f"{[(r, w) for r, w in zip(committed, fold10k.values()) if r != w]}")
+    for name, want in ((MONTGOMERY_CSV, mont), (BARRETT_FINAL_CSV, final)):
+        rows = committed_rows(name)
+        stale = [(r, want[tuple(r[:3])]) for r in rows if r != want[tuple(r[:3])]]
+        print(f"[stale] {name}: {len(stale)} of {len(rows)} committed rows differ from the "
+              f"reference's current output (committed, now): {stale}")
+    timings = []
+    torch.cuda.reset_peak_memory_stats()
+    for k in OUTER["ks"]:
+        for mode in reduction_campaigns.OUTER_MODES:
+            timing = {}
+            got = reduction_campaigns.outer_check_campaign(k, mode, OUTER["trials"],
+                                                           vec_len=OUTER["vec"], device="cuda",
+                                                           timing=timing)
+            timings.append(timing)
+            print(f"[outer] fold_k={k} {mode}: {json.dumps(got)} ({timing['wall_s'] * 1e3:.1f} ms)")
+            if got != pins["outer_check_T2000"][f"{k},{mode}"]:
+                raise RuntimeError(f"outer_check {k} {mode}: {got}, the reference "
+                                   f"{pins['outer_check_T2000'][f'{k},{mode}']}")
+    _campaign_walls("outer", timings, torch.cuda.max_memory_allocated())
+
+
+# the settings and bounds of tests/test_native.py, and for the two reduction
+# engines those of the device campaigns' tests (tests/test_reduction_campaigns.py:
+# test_montgomery_full_scheme, test_barrett_final_intra_s4)
+NATIVE_RUNS = (
+    ("four_step_mc", ("SBF", 200_000, 64, 769, 24), dict(seed=42),
+     lambda r: 0.0003 < r["miss_rate"] < 0.003 and r["stats"]["intra_catch"] > 0
+     and r["stats"]["batch_catch"] > 0),
+    ("three_stage_mc", ("MCF-CLE", 20_000, 8, 3, 4), dict(seed=1),
+     lambda r: 0.45 < r["collision_prob"][0] < 0.65 and 0.45 < r["collision_prob"][2] < 0.65),
+    ("three_stage_mc", ("SCF-BF", 20_000, 8, 12289, 24), dict(seed=2),
+     lambda r: max(r["collision_prob"]) < 0.01),
+    ("four_step_mc", ("MOF1", 50_000, 64, 769, 24), dict(seed=3), lambda r: r["miss_rate"] < 0.02),
+    ("four_step_mc", ("SBF+SBF", 20_000, 64, 769, 24), dict(seed=42, target_stage=1),
+     lambda r: r["miss_rate"] == 0.0 and r["stats"]["intra_catch"] == 20_000),
+    ("four_step_mc", ("SBF+SBF", 20_000, 64, 769, 24), dict(seed=42, target_stage=0),
+     lambda r: 0.001 < r["miss_rate"] < 0.01),
+    ("four_step_mc", ("MLF+MLF", 20_000, 64, 769, 24), dict(seed=42, target_stage=2),
+     lambda r: r["miss_rate"] < 0.01 and r["stats"]["batch2_catch"] > 19_000),
+    ("montgomery_mc", (24, (True, True, True), 200), dict(pbits=37, vec_len=256, flip_count=2, seed=4),
+     lambda r: r["detection_rate"] > 0.97),
+    ("barrett_final_mc", (4, 1, 600), dict(pbits=37, vec_len=128, use_intra=True, use_range=False,
+                                          use_sum=False, seed=6),
+     lambda r: 0.01 < r["miss_rate"] < 0.15),
+)
+
+
+def phase_native() -> None:
+    """P. The native engine's binding (native.py): built from
+    native/rfhe_mc.cpp into build/native/, each of its four functions at the
+    reference tests' settings, within their bounds, two calls at one
+    OMP_NUM_THREADS giving identical counts."""
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"[native] {lib.relative_to(native.ROOT)} built in {time.perf_counter() - t0:.2f} s "
+          f"(OMP_NUM_THREADS={os.environ.get('OMP_NUM_THREADS', 'unset')}, {os.cpu_count()} cores)")
+    for name, args, kwargs, within in NATIVE_RUNS:
+        fn = getattr(native, name)
+        t0 = time.perf_counter()
+        first = fn(*args, **kwargs)
+        secs = time.perf_counter() - t0
+        again = fn(*args, **kwargs)
+        print(f"[native] {name}{args} {kwargs}: {json.dumps(first)} in {secs:.2f} s")
+        if first != again or not within(first):
+            raise RuntimeError(f"native {name}{args}: {first}, again {again}, within bounds "
+                               f"{within(first)}")
+    print(f"[native] {len(NATIVE_RUNS)} runs within the reference tests' bounds, each repeated "
+          f"with identical counts")
+
+
+def phase_motivation() -> dict:
+    """Q. The motivation demos (models/motivation.py): main()'s six dicts
+    equal to the reference's (bench/reference_now.json); plaintext_perturb
+    (BGV at n=256, the one-block kernels) on the card equal to a CPU run."""
+    pins = reference_now()["motivation"]
+    ntt_cuda.KERNELS.reset_counts()
+    got = motivation.demos("cuda")
+    torch.cuda.synchronize()
+    launches = dict(ntt_cuda.KERNELS.launches)
+    ntt_cuda.KERNELS.reset_counts()
+    cpu = motivation.plaintext_perturb(device="cpu")
+    for name, res in got.items():
+        print(f"[motivation] {name}: {res}")
+    if got != pins or got["plaintext_perturb"] != cpu:
+        raise RuntimeError(f"motivation: {got}, the reference {pins}, plaintext_perturb on the CPU {cpu}")
+    print(f"[motivation] six dicts equal the reference's; plaintext_perturb on the card equals a "
+          f"CPU run; kernel launches {launches}")
+    return launches
+
+
 def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
-                   scheme: dict, faults: dict, profiling: dict) -> list:
+                   scheme: dict, faults: dict, profiling: dict, validate: dict,
+                   demos: dict) -> list:
     """One record per kernel form at its path's keyswitch shape, in the form
     that shape takes by itself, with every other shape and form timed in this
     run under `other_shapes`.  `ms` is the device timer's reading, `paced_ms`
     the host-paced one.  `launches` counts every counted path;
     `launches_protected`, `launches_bgv_bfv`, `launches_faults` and
-    `launches_profiling` are the shares of the protected paths and campaigns,
-    of the BGV, BFV and ProtectedBgv paths, of the fault campaigns and the
-    monitor, and of the profiling layer (phases G-L)."""
+    `launches_profiling`, `launches_validate` and `launches_motivation` are
+    the shares of the protected paths and campaigns, of the BGV, BFV and
+    ProtectedBgv paths, of the fault campaigns and the monitor, of the
+    profiling layer (phases G-L), of the grid audit (phase M) and of the
+    motivation demos (phase Q)."""
     records = []
     for d in ("fwd", "inv"):
         for large, key in (("", "4096"), ("_large", "65536")):
@@ -1568,6 +1838,8 @@ def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
                             "launches_bgv_bfv": scheme[d + large],
                             "launches_faults": faults[d + large],
                             "launches_profiling": profiling[d + large],
+                            "launches_validate": validate[d + large],
+                            "launches_motivation": demos[d + large],
                             "max_abs_err": err[d + large], "ms": head["ms"],
                             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                             "bound_by": head["bound_by"], "library_ms": None,
@@ -1627,18 +1899,26 @@ def main() -> None:
                 phase_ops_devtime, phase_bsgs, lambda: phase_roofline()[0]):
         for form, count in run().items():
             profiling[form] += count
+    # the grid audit, the control and reduction campaigns, the native engine
+    # and the motivation demos (phases M-Q)
+    validate = phase_grid()
+    phase_control()
+    phase_reduction()
+    phase_native()
+    demos = phase_motivation()
     for form in launches:
-        launches[form] += protected[form] + scheme[form] + faults[form] + profiling[form]
+        launches[form] += (protected[form] + scheme[form] + faults[form] + profiling[form]
+                           + validate[form] + demos[form])
     print(f"[main] kernel launches over all counted paths: {launches}, of which on the protected "
           f"CKKS paths and the campaigns {protected}, on the BGV, BFV and ProtectedBgv paths "
           f"{scheme}, in the fault campaigns and the monitor {faults}, in the profiling layer "
-          f"{profiling}")
+          f"{profiling}, in the grid audit {validate}, in the motivation demos {demos}")
     print(f"[main] on the N=4096 and the two N=65536 paths, by the kernels that ran: {by_kernels}; "
           f"protected: {prot_kernels}")
     if min(launches.values()) == 0 or min(by_kernels.values()) == 0:
         raise RuntimeError(f"kernels that no path launched: {launches}, {by_kernels}")
     print(json.dumps({"kernels": kernel_records(err, launches, times, protected, scheme, faults,
-                                                profiling)}))
+                                                profiling, validate, demos)}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,25 +1,35 @@
-"""Campaign sweep drivers: the reference's sweeps whose modules the port has.
+"""Campaign sweep drivers: the reference's sweeps, as one CLI.
 
-Counterpart of `rfhe_tpu/bench/sweeps.py`, with its argument names and
-defaults, plus `--device` (default cuda):
+Counterpart of `rfhe_tpu/bench/sweeps.py`, with its subcommands, argument
+names and defaults, plus `--device` (default cuda):
 
-  pbits      the three-stage pipeline's collision probability against the
-             prime's bit length, every fault type
-  relia_ntt  the protected four-step NTT against q's bit length
-  ntt_err    error propagation through the forward NTT (the hand kernels
-             on a GPU) against flips and corrupted words
-  dotprod    ciphertext flips through the encrypted BGV dot product
-  rotation   the rotation's phase breakdown against the ring
-             (bench/phase_profile.py), 2^logn_min ... 2^logn_max, levels+1
-             ciphertext limbs
-  dnum       the same against dnum at N (4096 when N <= 256)
-  composition  the encrypted dot product's evaluator-op shares and the
-             rotation's phase shares at N (4096 when N <= 256)
+  pbits          the three-stage pipeline's collision probability against
+                 the prime's bit length, every fault type
+  relia_ntt      the protected four-step NTT against q's bit length
+  barrett_fold   Barrett's detection rate against the fold width and the
+                 scheme (T, SN or final check), 37-bit prime, MOF or BF faults
+  montgomery     Montgomery's detection rate against the fold width
+  barrett_final  Intra / Range / Sum miss rates against s and the fault model
+  pbits_native, relia_ntt_native, montgomery_native, barrett_final_native
+                 the same campaigns on the native engine (native.py, on the
+                 host) at the reference's archive trial counts
+  ntt_err        error propagation through the forward NTT (the hand kernels
+                 on a GPU) against flips and corrupted words
+  dotprod        ciphertext flips through the encrypted BGV dot product
+  rotation       the rotation's phase breakdown against the ring
+                 (bench/phase_profile.py), 2^logn_min ... 2^logn_max,
+                 levels+1 ciphertext limbs
+  dnum           the same against dnum at N (4096 when N <= 256)
+  composition    the encrypted dot product's evaluator-op shares and the
+                 rotation's phase shares at N (4096 when N <= 256)
 
 Each sweep's rows come from a generator (`pbits_rows`, `relia_ntt_rows`,
-`ntt_err_rows`, `dotprod_rows`) that chip_smoke.py drives too.  Output files
-carry the reference's names with a prefix for the device they ran on
-(`h100_` on the card, `cpu_` on the CPU), so no committed CSV is written.
+`barrett_fold_rows`, `montgomery_rows`, `barrett_final_rows`, `ntt_err_rows`,
+`dotprod_rows`, ...) that chip_smoke.py drives too; the reduction sweeps'
+generators append each campaign's draw and wall seconds to `timings`.
+Output files carry the reference's names with a prefix for the device they
+ran on (`h100_` on the card, `cpu_` on the CPU), so no committed CSV is
+written.
 
 Usage: python -m rfhe_tpu_torch.bench.sweeps <name> [--trials N] [--out DIR]
            [--device cuda] ...
@@ -41,6 +51,19 @@ RELIA_HEADER = ["qbits", "kind", "det_rate", "miss_rate", "miss_stage1", "miss_s
 NTT_ERR_HEADER = ["num_flips", "num_symbols", "bit_error_rate", "symbol_error_rate", "hamming"]
 DOTPROD_HEADER = ["bits_per_symbol", "num_symbols", "symbol_errors", "total_symbols",
                   "bit_errors", "dot_hamming"]
+BARRETT_FOLD_HEADER = ["fold_width", "use_t", "use_sn", "use_final", "detection_rate",
+                       "TP", "FP", "TN", "FN"]
+MONTGOMERY_HEADER = ["fold_width", "use_m", "use_mp", "detection_rate"]
+BARRETT_FINAL_HEADER = ["s", "model", "protection", "miss_rate", "det_intra_only",
+                        "det_sum_only", "det_both", "undetected"]
+PBITS_NATIVE_HEADER = ["ftype", "pbits", "stage", "trials", "injected", "undetected",
+                       "collision_prob"]
+RELIA_NATIVE_HEADER = ["qbits", "q", "kind", "det_rate", "miss_rate", "intra_catch",
+                       "inter_catch", "batch_catch"]
+BARRETT_SCHEMES = [(True, False, False), (False, True, False), (False, False, True)]
+MONTGOMERY_SCHEMES = [(True, False, True), (False, True, True), (True, True, True)]
+PROTECTIONS = {"Intra": (True, False, False), "Range": (False, True, False),
+               "Sum": (False, False, True), "All": (True, True, True)}
 
 
 def pbits_rows(trials: int, N: int, W: int, seed: int, pbits_range, device: str):
@@ -73,6 +96,104 @@ def relia_ntt_rows(trials: int, N: int, fold: int, seed: int, qbits_range, devic
                    *(f"{m:.6f}" for m in res["per_stage_miss"]),
                    res["stats"]["intra_catch"], res["stats"]["inter_catch"],
                    res["stats"]["batch_catch"]]
+
+
+def barrett_fold_rows(trials: int, vec: int, bits_per_elem: int, seed: int, fault: str,
+                      fw_range, device: str, timings=None):
+    """Rows of the barrett_fold CSV: each fold width with the T, SN and final
+    schemes alone, 37-bit prime."""
+    from ..faults.reduction_campaigns import barrett_scheme_campaign
+    for fw in fw_range:
+        for sc in BARRETT_SCHEMES:
+            timing = {}
+            res = barrett_scheme_campaign(fw, sc, trials, pbits=37, vec_len=vec,
+                                          bits_per_elem=bits_per_elem, seed=seed, fault=fault,
+                                          device=device, timing=timing)
+            if timings is not None:
+                timings.append(timing)
+            yield [fw, int(sc[0]), int(sc[1]), int(sc[2]), f"{res['detection_rate']:.4f}",
+                   res["TP"], res["FP"], res["TN"], res["FN"]]
+
+
+def montgomery_rows(trials: int, vec: int, seed: int, device: str, timings=None):
+    """Rows of the montgomery CSV: fold widths 12 ... 24, the m and m·p
+    checks alone and together, the final check always on."""
+    from ..faults.reduction_campaigns import montgomery_campaign
+    for fw in range(12, 25, 2):
+        for sc in MONTGOMERY_SCHEMES:
+            timing = {}
+            res = montgomery_campaign(fw, sc, trials, pbits=37, vec_len=vec, seed=seed,
+                                      device=device, timing=timing)
+            if timings is not None:
+                timings.append(timing)
+            yield [fw, int(sc[0]), int(sc[1]), f"{res['detection_rate']:.4f}"]
+
+
+def barrett_final_rows(trials: int, vec: int, seed: int, device: str, timings=None):
+    """Rows of the barrett_final CSV: s = 4 ... 10, fault models 1-4, each
+    protection alone and all together."""
+    from ..faults.reduction_campaigns import barrett_final_campaign
+    for s_bits in range(4, 11):
+        for model in (1, 2, 3, 4):
+            for pname, (ui, ur, us_) in PROTECTIONS.items():
+                timing = {}
+                res = barrett_final_campaign(s_bits, model, trials, vec_len=vec, use_intra=ui,
+                                             use_range=ur, use_sum=us_, seed=seed,
+                                             device=device, timing=timing)
+                if timings is not None:
+                    timings.append(timing)
+                yield [s_bits, model, pname, f"{res['miss_rate']:.6f}", res["det_intra_only"],
+                       res["det_sum_only"], res["det_both"], res["undetected"]]
+
+
+def pbits_native_rows(trials: int, N: int, W: int, seed: int, pbits_range):
+    """Rows of the native pbits CSV; MCF-CLE, whose collision floor is
+    nonzero, at 10x the trials."""
+    from .. import native, numth
+    from ..faults.campaign import FAULT_TYPES
+    for ftype in FAULT_TYPES:
+        t = trials * (10 if ftype == "MCF-CLE" else 1)
+        for pbits in pbits_range:
+            P = numth.find_prime_with_bitlen(pbits, random.Random(seed))
+            res = native.three_stage_mc(ftype, t, S=int(N ** 0.5), P=P, W=W, seed=seed)
+            for s in range(3):
+                yield [ftype, pbits, s + 1, t, res["injected"][s], res["undetected"][s],
+                       f"{res['collision_prob'][s]:.7f}"]
+
+
+def relia_ntt_native_rows(trials: int, N: int, fold: int, seed: int, qbits_range):
+    """Rows of the native reliaNTT CSV (no NTT prime of a bit length: skipped)."""
+    from .. import native, numth
+    for qbits in qbits_range:
+        try:
+            q = numth.find_ntt_prime(N, qbits, negacyclic=False)
+        except ValueError:
+            continue
+        for kind in ("SBF", "DBF", "MOF1"):
+            res = native.four_step_mc(kind, trials, N, q, fold, seed=seed)
+            st = res["stats"]
+            yield [qbits, q, kind, f"{res['det_rate']:.6f}", f"{res['miss_rate']:.6f}",
+                   st["intra_catch"], st["inter_catch"], st["batch_catch"]]
+
+
+def montgomery_native_rows(trials: int, vec: int, seed: int):
+    from .. import native
+    for fw in range(12, 25, 2):
+        for sc in MONTGOMERY_SCHEMES:
+            res = native.montgomery_mc(fw, sc, trials, pbits=37, vec_len=vec, seed=seed)
+            yield [fw, int(sc[0]), int(sc[1]), f"{res['detection_rate']:.4f}", res["TP"],
+                   res["FN"]]
+
+
+def barrett_final_native_rows(trials: int, vec: int, seed: int):
+    from .. import native
+    for s_bits in range(4, 11):
+        for model in (1, 2, 3, 4):
+            for pname, (ui, ur, us_) in PROTECTIONS.items():
+                res = native.barrett_final_mc(s_bits, model, trials, vec_len=vec, use_intra=ui,
+                                              use_range=ur, use_sum=us_, seed=seed)
+                yield [s_bits, model, pname, f"{res['miss_rate']:.6f}", res["det_intra_only"],
+                       res["det_sum_only"], res["det_both"], res["undetected"]]
 
 
 def ntt_err_rows(plan, max_flips: int, max_symbols: int, seed: int):
@@ -167,6 +288,53 @@ def sweep_relia_ntt(args) -> str:
                                  args.device), "relia_ntt")
 
 
+def _fw_range(args):
+    return range(args.fw_min, args.fw_max + 1, args.fw_step)
+
+
+def sweep_barrett_fold(args) -> str:
+    return _write(args, f"barrett_fold_{args.fault}_T{args.trials}.csv", BARRETT_FOLD_HEADER,
+                  barrett_fold_rows(args.trials, args.vec, args.bits_per_elem, args.seed,
+                                    args.fault, _fw_range(args), args.device), "barrett")
+
+
+def sweep_montgomery(args) -> str:
+    return _write(args, f"montgomery_T{args.trials}.csv", MONTGOMERY_HEADER,
+                  montgomery_rows(args.trials, args.vec, args.seed, args.device), "mont")
+
+
+def sweep_barrett_final(args) -> str:
+    return _write(args, f"barrett_final_T{args.trials}.csv", BARRETT_FINAL_HEADER,
+                  barrett_final_rows(args.trials, args.vec, args.seed, args.device),
+                  "barrett_final")
+
+
+def sweep_pbits_native(args) -> str:
+    return _write(args, f"pbits_native_W{args.W}_N{args.N}_T{args.trials}.csv",
+                  PBITS_NATIVE_HEADER,
+                  pbits_native_rows(args.trials, args.N, args.W, args.seed,
+                                    range(args.pbits_min, args.pbits_max + 1, args.pbits_step)),
+                  "pbits_native")
+
+
+def sweep_relia_ntt_native(args) -> str:
+    return _write(args, f"reliaNTT_native_N{args.N}_T{args.trials}.csv", RELIA_NATIVE_HEADER,
+                  relia_ntt_native_rows(args.trials, args.N, args.fold, args.seed,
+                                        range(args.qbits_min, args.qbits_max + 1,
+                                              args.qbits_step)), "relia_native")
+
+
+def sweep_montgomery_native(args) -> str:
+    return _write(args, f"montgomery_native_T{args.trials}.csv", MONTGOMERY_HEADER + ["TP", "FN"],
+                  montgomery_native_rows(args.trials, args.vec, args.seed), "mont_native")
+
+
+def sweep_barrett_final_native(args) -> str:
+    return _write(args, f"barrett_final_native_T{args.trials}.csv", BARRETT_FINAL_HEADER,
+                  barrett_final_native_rows(args.trials, args.vec, args.seed),
+                  "barrett_final_native")
+
+
 def sweep_ntt_err(args) -> str:
     from .. import numth
     from ..ops.ntt import NttPlan
@@ -222,6 +390,13 @@ def sweep_composition(args) -> str:
 SWEEPS = {
     "pbits": sweep_pbits,
     "relia_ntt": sweep_relia_ntt,
+    "relia_ntt_native": sweep_relia_ntt_native,
+    "pbits_native": sweep_pbits_native,
+    "montgomery_native": sweep_montgomery_native,
+    "barrett_final_native": sweep_barrett_final_native,
+    "barrett_fold": sweep_barrett_fold,
+    "montgomery": sweep_montgomery,
+    "barrett_final": sweep_barrett_final,
     "ntt_err": sweep_ntt_err,
     "dotprod": sweep_dotprod,
     "rotation": sweep_rotation,
@@ -231,17 +406,26 @@ SWEEPS = {
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description="rfhe_tpu_torch campaign sweeps")
-    ap.add_argument("name", choices=sorted(SWEEPS))
+    ap = argparse.ArgumentParser(description="rfhe_tpu_torch campaign sweeps: "
+                                 + ", ".join(SWEEPS))
+    ap.add_argument("name", choices=sorted(SWEEPS), help="the sweep: " + ", ".join(SWEEPS))
     ap.add_argument("--trials", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--out", type=str, default="results")
     ap.add_argument("--N", type=int, default=64)
     ap.add_argument("--W", type=int, default=24)
     ap.add_argument("--fold", type=int, default=24)
+    ap.add_argument("--vec", type=int, default=1024)
+    ap.add_argument("--bits-per-elem", type=int, default=1)
+    ap.add_argument("--fault", choices=("MOF", "BF"), default="MOF",
+                    help="barrett_fold fault mix: MOF randomize (the reference's measured "
+                         "draw_barrett tables) or BF bit flips (barret_modmul.py defaults)")
     ap.add_argument("--pbits-min", type=int, default=2)
     ap.add_argument("--pbits-max", type=int, default=30)
     ap.add_argument("--pbits-step", type=int, default=2)
+    ap.add_argument("--fw-min", type=int, default=2)
+    ap.add_argument("--fw-max", type=int, default=24)
+    ap.add_argument("--fw-step", type=int, default=2)
     ap.add_argument("--qbits-min", type=int, default=10)
     ap.add_argument("--qbits-max", type=int, default=30)
     ap.add_argument("--qbits-step", type=int, default=2)

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ..protect.fold import mul32_parts
+
 M32 = 0xFFFFFFFF
 
 
@@ -82,6 +84,12 @@ def barrett_word(x: torch.Tensor, q: int, mu: int, k: int) -> torch.Tensor:
     for _ in range(2):
         c = torch.where(c >= q, c - q, c)
     return c & M32
+
+
+def mulhi32(a: torch.Tensor, b) -> torch.Tensor:
+    """The high word of the 64-bit product of two words below 2^32
+    (`u32.mulhi32`); a·b may pass 2^63, so it is formed by `mul32_parts`."""
+    return mul32_parts(a, b)[0]
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,12 @@ A key is a uint32 array whose last axis has length 2.  Every function takes
 any leading key axes, so T per-trial keys draw in one call: what
 `jax.vmap` over keys gives, the function applied to each key alone.  The draws
 are made on the host; a campaign moves them to its device once.
+
+`random_bits_on`, `randint_on` and `choice_on` make the same draws on a torch
+device (the threefry rounds in int64 tensor ops, a stable `torch.sort`), for
+campaigns whose draws are large enough to set their wall on the host: the
+reduction campaigns draw tens of millions of words, the control campaign at
+n = 4096 sixteen million.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import math
 from typing import Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 Shape = Union[int, Sequence[int]]
 
@@ -151,6 +158,11 @@ def bernoulli(key: np.ndarray, p: float = 0.5, shape: Shape = ()) -> np.ndarray:
     return uniform(key, shape) < np.float32(p)
 
 
+def _rounds(n: int) -> int:
+    """Sort rounds of jax's permutation of n: ceil(3·ln n / ln(2^32 - 1))."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+
+
 def permutation(key: np.ndarray, n: int) -> np.ndarray:
     """`jax.random.permutation(key, n)`: arange(n) (int32) through
     ceil(3·ln n / ln(2^32 - 1)) rounds; each round splits the key, draws a
@@ -159,8 +171,7 @@ def permutation(key: np.ndarray, n: int) -> np.ndarray:
     Returns (..., n) int32."""
     key = np.asarray(key, np.uint32)
     x = np.broadcast_to(np.arange(n, dtype=np.int32), key.shape[:-1] + (n,))
-    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
-    for _ in range(rounds):
+    for _ in range(_rounds(n)):
         k = split(key)
         key, sub = k[..., 0, :], k[..., 1, :]
         order = np.argsort(random_bits(sub, n), axis=-1, kind="stable")
@@ -178,3 +189,69 @@ def choice(key: np.ndarray, n: int, shape: Shape) -> np.ndarray:
         raise ValueError(f"cannot take {k} of {n} without replacement")
     key = np.asarray(key, np.uint32)
     return permutation(key, n)[..., :k].reshape(key.shape[:-1] + shape)
+
+
+# ---------------------------------------------------------------------------
+# The same draws on a torch device
+
+_M32 = 0xFFFFFFFF
+
+
+def _threefry_on(k1: torch.Tensor, k2: torch.Tensor, x1, x2: torch.Tensor):
+    """`threefry2x32` on int64 tensors holding 32-bit words."""
+    ks = (k1, k2, k1 ^ k2 ^ int(_PARITY))
+    x0 = (x1 + ks[0]) & _M32
+    x1 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def random_bits_on(key: np.ndarray, shape: Shape, device) -> torch.Tensor:
+    """`random_bits` computed on `device`: (..., *shape) int64 words."""
+    shape = _shape(shape)
+    size = math.prod(shape)
+    if size >> 32:
+        raise ValueError("a draw of 2^32 words or more per key is not supported")
+    key = np.asarray(key, np.uint32)
+    k = torch.from_numpy(key.reshape(-1, 2).astype(np.int64)).to(device)
+    b1, b2 = _threefry_on(k[:, :1], k[:, 1:], 0, torch.arange(size, device=k.device))
+    return (b1 ^ b2).reshape(key.shape[:-1] + shape)
+
+
+def randint_on(key: np.ndarray, shape: Shape, minval: int, maxval: int, device) -> torch.Tensor:
+    """`randint` (int32 or uint32 bounds alike, values in [minval, maxval))
+    computed on `device`: (..., *shape) int64.  The uint32 product of the
+    reference wraps only where span > 2^16, and there m = 0."""
+    if int(minval) < 0:
+        raise ValueError("randint_on takes bounds >= 0")
+    shape = _shape(shape)
+    lo_v, hi_v = _clip_bound(int(minval), np.uint32), _clip_bound(int(maxval), np.uint32)
+    k = split(key)
+    higher = random_bits_on(k[..., 0, :], shape, device)
+    lower = random_bits_on(k[..., 1, :], shape, device)
+    span = 1 if hi_v <= lo_v else hi_v - lo_v
+    mult = ((1 << 16) % span) ** 2 % (1 << 32) % span
+    return lo_v + (((higher % span) * mult + lower % span) & _M32) % span
+
+
+def choice_on(key: np.ndarray, n: int, shape: Shape, device) -> torch.Tensor:
+    """`choice` (without replacement) computed on `device`: the permutation's
+    rounds as stable sorts of `random_bits_on` words.  (..., *shape) int64."""
+    shape = _shape(shape)
+    k = math.prod(shape)
+    if k > n:
+        raise ValueError(f"cannot take {k} of {n} without replacement")
+    key = np.asarray(key, np.uint32)
+    lead = key.shape[:-1]
+    x = torch.arange(n, device=device).expand(lead + (n,))
+    for _ in range(_rounds(n)):
+        ks = split(key)
+        key, sub = ks[..., 0, :], ks[..., 1, :]
+        order = torch.sort(random_bits_on(sub, n, device), dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x[..., :k].reshape(lead + shape)

@@ -360,3 +360,49 @@ def test_profiled_rotation_matches_cpu(cuda, dnum):
         assert all(torch.equal(a.data, b.data) for a, b in zip(out.c, plain.c))
         runs.append([c.data.cpu() for c in out.c])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("n", [1024, 65536])
+def test_grid_audit_rings(cuda, n):
+    """The shape-grid audit (bench/fused_validate.py) at two rings: every mix
+    in every form bit-exact, one K1 and one K2 launch per row."""
+    from rfhe_tpu_torch.bench import fused_validate
+
+    saved = fused_validate.NS
+    fused_validate.NS = (n,)
+    try:
+        before = ntt_cuda.KERNELS.fwd_launches
+        rows = list(fused_validate.grid_rows(cuda))
+    finally:
+        fused_validate.NS = saved
+    assert len(rows) == 3 * len(fused_validate.forms(n))
+    assert all(r["fwd_ok"] and r["inv_ok"] and r["roundtrip_ok"] for r in rows)
+    assert ntt_cuda.KERNELS.fwd_launches == before + len(rows)
+
+
+@pytest.mark.parametrize("name, args, kw", [
+    ("barrett_scheme_campaign", (4, (True, True, True), 300), dict(vec_len=512, fault="MOF")),
+    ("barrett_final_campaign", (5, 4, 300), dict(vec_len=512)),
+])
+def test_reduction_campaign_matches_cpu(cuda, name, args, kw):
+    from rfhe_tpu_torch.faults import reduction_campaigns
+
+    fn = getattr(reduction_campaigns, name)
+    assert fn(*args, device="cuda", chunk=100, **kw) == fn(*args, device="cpu", **kw)
+
+
+def test_stacked_plan_and_control_match_cpu(cuda):
+    from rfhe_tpu_torch.faults.ntt_control import standard_ntt_campaign
+    from rfhe_tpu_torch.numth import find_ntt_prime
+    from rfhe_tpu_torch.ops import ntt_stacked
+
+    primes = find_ntt_primes(4096, 30, 3)
+    x = torch.randint(0, min(primes), (2, 3, 4096), generator=torch.Generator().manual_seed(3))
+    out = [ntt_stacked.poly_mul_negacyclic(x.to(dev), x.to(dev),
+                                           ntt_stacked.StackedNttPlan.make(4096, primes, dev)).cpu()
+           for dev in (cuda, "cpu")]
+    assert torch.equal(out[0], out[1])
+    q = find_ntt_prime(64, 12, negacyclic=False)
+    for target in ("mult", "storage"):
+        assert standard_ntt_campaign("SBF+DBF", target, 500, 64, q, device="cuda") == \
+            standard_ntt_campaign("SBF+DBF", target, 500, 64, q, device="cpu")

@@ -43,6 +43,10 @@ def test_import_without_jax():
         "import rfhe_tpu_torch.bench.phase_profile, rfhe_tpu_torch.bench.ops_devtime\n"
         "import rfhe_tpu_torch.bench.perf_suite, rfhe_tpu_torch.bench.northstar\n"
         "import rfhe_tpu_torch.bench.roofline\n"
+        "import rfhe_tpu_torch.ops.bigint, rfhe_tpu_torch.ops.ntt_stacked\n"
+        "import rfhe_tpu_torch.faults.ntt_control, rfhe_tpu_torch.faults.reduction_campaigns\n"
+        "import rfhe_tpu_torch.native, rfhe_tpu_torch.oracle, rfhe_tpu_torch.models.motivation\n"
+        "import rfhe_tpu_torch.bench.fused_validate\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items()\n"
         "       if mod is not None and m.split('.')[0] in ('jax', 'rfhe_tpu')]\n"
