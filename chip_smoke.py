@@ -147,6 +147,21 @@ the motivation demos, after phase L:
      plaintext_perturb (BGV n=256 through the one-block kernels) equal to a
      CPU run
 
+The multi-device layer (parallel/, transform/distributed.py,
+transform/mxu_sharded.py, bench/scaling*.py), last, after phase Q:
+  R. one NCCL world of torch.cuda.device_count() ranks, here this process
+     alone (world of 1: NCCL refuses two ranks on one card), through a
+     file:// store with a 120 s timeout: the limb-sharded CKKS evaluator on
+     the N=4096 (21 + 1 limbs) and N=65536 per-limb contexts, rotate(1),
+     multiply_relin and rescale, every array equal to the unsharded
+     context's and decrypting within LIMITS, its K1/K2 launches counted;
+     the sharded four-step NTT and its protected form at n=1024 with 8 limbs,
+     the sharded production NTT forward and inverse at n=4096 (L=12) and
+     n=65536 (L=21) equal to NttPlan.fwd / inv (K1 / K2), the guard's flags
+     true on clean data and false on one flipped output word; both scaling
+     harnesses' rows; the wall per sharded op beside the unsharded one and
+     NCCL's all_gather, broadcast and all_to_all at these shapes
+
 Phase 3 also holds the kernels at those shapes: the t plans (1, 1, 16384)
 at 20 and 17 bits and (1, 1, 4096) at 16, the BEHZ basis (4, 13, 16384) and
 (3, 13, 16384), the chain (4, 10) and (3, 10), and the BGV keyswitch's
@@ -155,7 +170,7 @@ at 20 and 17 bits and (1, 1, 4096) at 16, the BEHZ basis (4, 13, 16384) and
 Launch counts are set to 0 just before each path (the protected ones
 included) and read just after; the kernel records carry their sum and the
 shares of the protected paths, the schemes, the campaigns, the profiling
-layer, the grid audit and the motivation demos.
+layer, the grid audit, the motivation demos and the sharded CKKS paths.
 The third-to-last line is the per-kernel JSON record, the second-to-last
 names the card and its power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -168,14 +183,17 @@ import json
 import os
 import tempfile
 import time
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rfhe_tpu_torch import native
 from rfhe_tpu_torch.bench import (fused_validate, northstar, ops_devtime, overheads, perf_suite,
-                                  phase_profile, protected_overhead, real_monitor, roofline, sweeps)
+                                  phase_profile, protected_overhead, real_monitor, roofline,
+                                  scaling, scaling_mxu, sweeps)
 from rfhe_tpu_torch.device import (DEVICE_TIMER, MODES, card, cuda_ms, device_ms, profile_kernels,
                                    profiled_us, to_numpy_u32, wall_us)
 from rfhe_tpu_torch.faults import evaluator_campaign, ntt_control, reduction_campaigns
@@ -195,6 +213,11 @@ from rfhe_tpu_torch.models.dotprod import dot_product_bgv
 from rfhe_tpu_torch.numth import find_ntt_prime, find_ntt_primes
 from rfhe_tpu_torch.ops import ntt_cuda, ntt_pease, ntt_stacked
 from rfhe_tpu_torch.ops.ntt import NttPlan, ntt_fwd_reference, ntt_inv_reference
+from rfhe_tpu_torch.parallel import worlds
+from rfhe_tpu_torch.parallel.mesh import all_gather_cat, all_to_all_tiled, make_mesh
+from rfhe_tpu_torch.parallel.sharded_ckks import ShardedCkks
+from rfhe_tpu_torch.transform import mxu_sharded
+from rfhe_tpu_torch.transform.four_step import FourStepPlan, four_step_ntt
 from rfhe_tpu_torch.profile_rotation import profile_op
 from rfhe_tpu_torch.trace import ProfiledRotation
 from rfhe_tpu_torch.trace.profiled import MODDOWN_PARTS, PHASES
@@ -1607,12 +1630,13 @@ def _fmt_final(key: str, d: dict) -> list:
                              str(d["det_sum_only"]), str(d["det_both"]), str(d["undetected"])]
 
 
-def phase_grid() -> tuple:
+def phase_grid(c: str) -> tuple:
     """M. The shape-grid audit (bench/fused_validate.py): the 24 (n, prime mix)
     points of the reference's grid, batch 5, every form of each ring (one-block
     up to n = 8192, two passes and cluster kernels at every n), K1, K2 of its
     output and the round trip bit for bit against the plain butterflies;
-    its rows go to build/h100_profiling/."""
+    its rows go to build/h100_profiling/.  Then every form's time beside its
+    byte bound at the grid's (5, 3, 4096) and (5, 3, 65536), 30x3 primes."""
     path = OUT / "h100_fused_validate_grid.csv"
     ntt_cuda.KERNELS.reset_counts()
     t0 = time.perf_counter()
@@ -1633,6 +1657,10 @@ def phase_grid() -> tuple:
     print(f"[grid] {len(rows)} rows at {len(points)} points, every form bit-exact (n=65536 at "
           f"31+30 in both large-ring forms) in {secs:.2f} s; launches {launches}, by kernels "
           f"{by_kernels}")
+    for n in (4096, 65536):
+        plan = NttPlan.make(n, fused_validate.grid_primes(n, fused_validate.BIT_SETS["30x3"]), "cuda")
+        time_forms(c, plan, 5, list(fused_validate.forms(n).values()))
+    ntt_cuda.KERNELS.reset_counts()
     return launches
 
 
@@ -1812,9 +1840,167 @@ def phase_motivation() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The multi-device layer (phase R)
+# ---------------------------------------------------------------------------
+
+SHARDED_CKKS = ("N=4096", "N=65536")
+FOUR_STEP_SHARDED = (1024, 8)                  # n, limbs (bench/scaling.py's default)
+MXU_SHARDED = ((4096, 12), (65536, 21))        # n, limbs (bench/scaling_mxu.py's default; the path's)
+
+
+@contextlib.contextmanager
+def nccl_world():
+    """This process as the only rank of an NCCL world (file:// store,
+    120 s timeout); destroyed on the way out."""
+    with tempfile.TemporaryDirectory(prefix="rfhe_nccl_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+                                timeout=timedelta(seconds=120), device_id=torch.device("cuda", 0))
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def sharded_ckks_path(c: str, name: str, ctx: CkksContext, mesh) -> dict:
+    """rotate(1), multiply_relin and rescale on the limb-sharded ciphertext,
+    counted, each gathered array equal to the unsharded context's; then the
+    warm wall of each op beside the unsharded one and NCCL's collectives at
+    the op's shapes."""
+    n = ctx.params.n
+    z = np.random.default_rng(0).uniform(-1, 1, n // 2) + 0j
+    ct = ctx.encrypt(*ctx.encode(z))
+    plain = {"rotate": ctx.rotate(ct, 1), "multiply_relin": ctx.multiply_relin(ct, ct)}
+    plain["rescale"] = ctx.rescale(plain["multiply_relin"])
+    sh = ShardedCkks(ctx, mesh)
+    torch.cuda.synchronize()
+    ntt_cuda.KERNELS.reset_counts()
+    t0 = time.perf_counter()
+    sct = sh.shard(ct)
+    got = {"rotate": sh.rotate(sct, 1), "multiply_relin": sh.multiply_relin(sct, sct)}
+    got["rescale"] = sh.rescale(got["multiply_relin"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ntt_cuda.KERNELS.launches)
+    ntt_cuda.KERNELS.reset_counts()
+    for op, want in plain.items():
+        if not same_arrays({op: sh.gather(got[op]).to_numpy()}, {op: want.to_numpy()},
+                           f"sharded {op} at {name}"):
+            raise RuntimeError(f"sharded {op} at {name}: no arrays compared")
+    errs = (np.abs(ctx.decrypt_decode(sh.gather(got["rotate"])) - np.roll(z, -1)).max(),
+            np.abs(ctx.decrypt_decode(sh.gather(got["rescale"])) - z * z).max())
+    if not (errs[0] <= LIMITS[n][0] and errs[1] <= LIMITS[n][1]):
+        raise RuntimeError(f"sharded CKKS at {name}: decryption errors {errs}, limits {LIMITS[n]}")
+    large = "_large" if ntt_cuda.default_split(n) else ""
+    if launches["fwd" + large] == 0 or launches["inv" + large] == 0:
+        raise RuntimeError(f"sharded CKKS at {name} did not launch both kernels: {launches}")
+    print(f"[sharded] {name}: rotate(1), multiply_relin, rescale on the limb-sharded ciphertext "
+          f"(world of 1) equal the unsharded context's, array for array; decryption errors "
+          f"{errs[0]:.3e}, {errs[1]:.3e} (limits {LIMITS[n]}); {secs:.3f} s first call; K1/K2 "
+          f"launches {launches}")
+    ops = {"rotate": (lambda: ctx.rotate(ct, 1), lambda: sh.rotate(sct, 1)),
+           "multiply_relin": (lambda: ctx.multiply_relin(ct, ct),
+                              lambda: sh.multiply_relin(sct, sct)),
+           "rescale": (lambda: ctx.rescale(plain["multiply_relin"]),
+                       lambda: sh.rescale(got["multiply_relin"]))}
+    for op, (unsharded, sharded) in ops.items():
+        # alternated, five readings of 10 calls each: the host-bound walls
+        # spread by tens of percent from one reading to the next
+        a, b = [], []
+        for _ in range(5):
+            a.append(wall_us(unsharded, 10))
+            b.append(wall_us(sharded, 10))
+        a, b = np.median(a), np.median(b)
+        print(f"[sharded] {name} {op}: wall {b:.1f} us sharded (D=1), {a:.1f} us unsharded "
+              f"(medians of 5 alternated readings of 10 calls), {b - a:+.1f} us; {c}")
+    group = mesh.get_group("limb")
+    rows = torch.zeros((ct.level + 1, n), dtype=torch.int64, device="cuda")
+    top = torch.zeros((2, n), dtype=torch.int64, device="cuda")
+    ag = wall_us(lambda: all_gather_cat(rows, group), 20)
+    bc = wall_us(lambda: dist.broadcast(top, src=0, group=group), 20)
+    print(f"[sharded] {name} NCCL (world of 1): all_gather of ({ct.level + 1}, {n}) words "
+          f"{ag:.1f} us, broadcast of (2, {n}) {bc:.1f} us; {c}")
+    return launches
+
+
+def phase_sharded(c: str, ctxs: dict) -> dict:
+    """R. The multi-device layer through an NCCL world of
+    torch.cuda.device_count() ranks, which on this one-card machine is this
+    process alone.  Returns the sharded CKKS paths' launches."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"[sharded] {count} card: worlds of 2 or more ranks ran only as the CPU tests' gloo "
+              f"worlds (tests/test_torch_distributed.py, _mxu_sharded.py, "
+              f"_sharded_evaluator.py, _scaling.py); no scaling across cards is measured here")
+    t0 = time.perf_counter()
+    total = dict.fromkeys(ntt_cuda.FORMS, 0)
+    rng = np.random.default_rng(3)
+    with nccl_world():
+        mesh = make_mesh(1, axis="limb", device="cuda")
+        for name in SHARDED_CKKS:
+            for form, k in sharded_ckks_path(c, name, ctxs[name], mesh).items():
+                total[form] += k
+        # the sharded four-step NTT and its protected form
+        n, limbs = FOUR_STEP_SHARDED
+        q = find_ntt_prime(n, 28)
+        x1 = rng.integers(0, q, n, dtype=np.uint32)
+        xb = rng.integers(0, q, (limbs, n), dtype=np.uint32)
+        out = worlds.four_step_cases(n, q, x1, xb, 0, (3, 5, 7), (1,), "cuda")
+        plan = FourStepPlan.make(n, q, "cuda")
+        y = four_step_ntt(torch.from_numpy(xb.astype(np.int64)).cuda(), plan)
+        prot, flipped = out[1, "protected"], out[1, "flipped"]
+        if not (np.array_equal(out[1, "fwd", "batched"], to_numpy_u32(y))
+                and np.array_equal(out[1, "inv", "batched"], xb)
+                and np.array_equal(out[1, "fwd", "single"], to_numpy_u32(four_step_ntt(
+                    torch.from_numpy(x1.astype(np.int64)).cuda(), plan)))
+                and prot[1:] == (True, True, True) and not flipped[0]):
+            raise RuntimeError(f"sharded four-step NTT at n={n}: flags {prot[1:]}, flipped {flipped}")
+        print(f"[sharded] four_step_ntt_sharded / intt at n={n}, {limbs} limbs equal the unsharded "
+              f"four-step NTT and the input; protected flags {prot[1:]} clean, {flipped} with one "
+              f"flipped B1 word")
+        # the sharded production NTT against K1 / K2
+        for n, limbs in MXU_SHARDED:
+            primes = find_ntt_primes(n, 30, limbs)
+            x = rng.integers(0, min(primes), (limbs, n), dtype=np.uint32)
+            flip = (limbs // 2, n // 3, 9)
+            out = worlds.mxu_cases(n, primes, x, x[None], flip, (1,), "cuda")
+            plan = NttPlan.make(n, primes, "cuda")
+            xt = torch.from_numpy(x.astype(np.int64)).cuda()
+            y = plan.fwd(xt)
+            ok, bad_ok = out[1, "protected"][1], out[1, "flipped"][1]
+            want_bad = np.ones(limbs, dtype=bool)
+            want_bad[flip[0]] = False
+            if not (np.array_equal(out[1, "fwd"], to_numpy_u32(y))
+                    and np.array_equal(out[1, "inv"], to_numpy_u32(plan.inv(y)))
+                    and np.array_equal(out[1, "roundtrip"], x)
+                    and ok.all() and np.array_equal(bad_ok, want_bad)):
+                raise RuntimeError(f"sharded production NTT at n={n}, L={limbs}: guard {ok}, "
+                                   f"flipped {bad_ok}")
+            fft = make_mesh(1, axis="fft", device="cuda")
+            g = fft.get_group("fft")
+            B = torch.zeros((limbs, plan.n2, plan.n1), dtype=torch.int64, device="cuda")
+            a2a = wall_us(lambda: all_to_all_tiled(B, g, -2, -1), 20)
+            ag = wall_us(lambda: all_gather_cat(B, g, -2), 20)
+            xs = mxu_sharded.shard_coeffs(xt, plan, fft)
+            walls = (wall_us(lambda: mxu_sharded.mxu_ntt_sharded(xs, plan, fft), 5),
+                     wall_us(lambda: plan.fwd(xt), 20))
+            print(f"[sharded] mxu_ntt_sharded / mxu_intt_sharded at n={n}, L={limbs} equal K1 / K2 "
+                  f"(NttPlan.fwd / inv) and the round trip; guard flags all true clean, false only "
+                  f"on limb {flip[0]} with one flipped output word; NCCL (world of 1) all_to_all "
+                  f"{a2a:.1f} us, all_gather {ag:.1f} us of ({limbs}, {plan.n2}, {plan.n1}) words; "
+                  f"wall of mxu_ntt_sharded {walls[0]:.1f} us, of NttPlan.fwd (K1) {walls[1]:.1f} "
+                  f"us; {c}")
+        for rows, what in ((scaling.measure(*FOUR_STEP_SHARDED, 20, "cuda"), "scaling"),
+                           (scaling_mxu.measure(*MXU_SHARDED[0], 30, "cuda"), "scaling_mxu")):
+            for row in rows:
+                print(f"[sharded] {what}: {row}; {c}")
+    print(f"[sharded] phase R in {time.perf_counter() - t0:.2f} s")
+    return total
+
+
 def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
                    scheme: dict, faults: dict, profiling: dict, validate: dict,
-                   demos: dict) -> list:
+                   demos: dict, sharded: dict) -> list:
     """One record per kernel form at its path's keyswitch shape, in the form
     that shape takes by itself, with every other shape and form timed in this
     run under `other_shapes`.  `ms` is the device timer's reading, `paced_ms`
@@ -1823,8 +2009,9 @@ def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
     `launches_profiling`, `launches_validate` and `launches_motivation` are
     the shares of the protected paths and campaigns, of the BGV, BFV and
     ProtectedBgv paths, of the fault campaigns and the monitor, of the
-    profiling layer (phases G-L), of the grid audit (phase M) and of the
-    motivation demos (phase Q)."""
+    profiling layer (phases G-L), of the grid audit (phase M), of the
+    motivation demos (phase Q); `launches_sharded` is the limb-sharded CKKS
+    paths' (phase R)."""
     records = []
     for d in ("fwd", "inv"):
         for large, key in (("", "4096"), ("_large", "65536")):
@@ -1840,6 +2027,7 @@ def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
                             "launches_profiling": profiling[d + large],
                             "launches_validate": validate[d + large],
                             "launches_motivation": demos[d + large],
+                            "launches_sharded": sharded[d + large],
                             "max_abs_err": err[d + large], "ms": head["ms"],
                             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                             "bound_by": head["bound_by"], "library_ms": None,
@@ -1901,24 +2089,27 @@ def main() -> None:
             profiling[form] += count
     # the grid audit, the control and reduction campaigns, the native engine
     # and the motivation demos (phases M-Q)
-    validate = phase_grid()
+    validate = phase_grid(c)
     phase_control()
     phase_reduction()
     phase_native()
     demos = phase_motivation()
+    # the multi-device layer (phase R), last
+    sharded = phase_sharded(c, ctxs)
     for form in launches:
         launches[form] += (protected[form] + scheme[form] + faults[form] + profiling[form]
-                           + validate[form] + demos[form])
+                           + validate[form] + demos[form] + sharded[form])
     print(f"[main] kernel launches over all counted paths: {launches}, of which on the protected "
           f"CKKS paths and the campaigns {protected}, on the BGV, BFV and ProtectedBgv paths "
           f"{scheme}, in the fault campaigns and the monitor {faults}, in the profiling layer "
-          f"{profiling}, in the grid audit {validate}, in the motivation demos {demos}")
+          f"{profiling}, in the grid audit {validate}, in the motivation demos {demos}, on the "
+          f"limb-sharded CKKS paths {sharded}")
     print(f"[main] on the N=4096 and the two N=65536 paths, by the kernels that ran: {by_kernels}; "
           f"protected: {prot_kernels}")
     if min(launches.values()) == 0 or min(by_kernels.values()) == 0:
         raise RuntimeError(f"kernels that no path launched: {launches}, {by_kernels}")
     print(json.dumps({"kernels": kernel_records(err, launches, times, protected, scheme, faults,
-                                                profiling, validate, demos)}))
+                                                profiling, validate, demos, sharded)}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,9 +41,27 @@ class PublicKey:
 @dataclass
 class KeySwitchKey:
     """b, a: (n_digits, L_full, N) NTT domain over the ciphertext primes
-    followed by the special primes."""
+    followed by the special primes.  A key cut to some of its rows (a rank
+    of the limb-sharded evaluator keeps its own limbs and the special ones)
+    names the basis index of each row in `limbs`; None is the whole basis."""
     b: torch.Tensor
     a: torch.Tensor
+    limbs: Optional[Tuple[int, ...]] = None
+
+    def rows(self, basis: Sequence[int]) -> List[int]:
+        """The rows of b and a that hold the basis limbs `basis`."""
+        if self.limbs is None:
+            return list(basis)
+        missing = [i for i in basis if i not in self.limbs]
+        if missing:
+            raise ValueError(f"this key holds limbs {self.limbs}, not {missing}")
+        return [self.limbs.index(i) for i in basis]
+
+    def cut(self, basis: Sequence[int]) -> "KeySwitchKey":
+        """The key restricted to the basis limbs `basis`."""
+        idx = torch.tensor(self.rows(basis), dtype=torch.int64, device=self.b.device)
+        return KeySwitchKey(b=self.b.index_select(1, idx), a=self.a.index_select(1, idx),
+                            limbs=tuple(int(i) for i in basis))
 
 
 def _rns_from_signed(coeffs: np.ndarray, moduli) -> np.ndarray:
@@ -196,7 +214,8 @@ def _single_moduli(moduli: tuple, limbs: tuple, lim: tuple) -> np.ndarray:
 
 def compute_digits(d_coeff: torch.Tensor, level: int, ctx: RnsContext,
                    n_ct_limbs: int, dnum: Optional[int] = None,
-                   with_ecc: bool = False) -> tuple:
+                   with_ecc: bool = False,
+                   targets: Optional[Sequence[int]] = None) -> tuple:
     """Digit decomposition + base extension for the hybrid keyswitch
     (`rfhe_tpu.fhe.keys.compute_digits`).  Returns (dig (n_used, n_lim, N)
     coefficient domain, used group indices, lim basis); with_ecc=True also
@@ -206,12 +225,17 @@ def compute_digits(d_coeff: torch.Tensor, level: int, ctx: RnsContext,
     with one active limb l extends v = d[l] to every limb of lim by one
     broadcast `%` (`_single_moduli`); a group with several active limbs takes
     the fast base extension of `_extend_group`, and its reference is
-    Σ_l W[l,i]·(Σ_N r'_l mod q_i) mod q_i over the same r'."""
+    Σ_l W[l,i]·(Σ_N r'_l mod q_i) mod q_i over the same r'.
+
+    `targets` restricts the ciphertext limbs the digits are extended to
+    (all active limbs by default; the special limbs always follow): every
+    digit still reads all of d, and each target limb's row is the one the
+    whole basis gives it."""
     L = n_ct_limbs
     active = level + 1
     if dnum is None:
         dnum = L
-    lim = list(range(active)) + list(range(L, len(ctx.moduli)))
+    lim = (list(range(active)) if targets is None else list(targets)) + list(range(L, len(ctx.moduli)))
     q_lim = ctx.plan.tables.q[ctx.index(lim)]
     groups = [(gi, G) for gi, grp in enumerate(_digit_groups(L, dnum))
               if (G := [l for l in grp if l < active])]
@@ -245,29 +269,34 @@ def compute_digits(d_coeff: torch.Tensor, level: int, ctx: RnsContext,
 
 def keyswitch(d_coeff: torch.Tensor, ksk: KeySwitchKey, level: int,
               ctx: RnsContext, n_ct_limbs: int, t: Optional[int] = None,
-              dnum: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+              dnum: Optional[int] = None,
+              targets: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply a keyswitch key to a coefficient-domain poly d (level+1, N).
     Returns (c0_delta, c1_delta) in the NTT domain over limbs 0..level
     (`rfhe_tpu.fhe.keys.keyswitch`): digits, one batched NTT, the dyadic MAC
     against the key, the digit sum, then mod-down by the special primes, last
     to first, both accumulators in one batched `drop_limb` each (t-aware in
-    BGV: the mod-down keeps the message mod t)."""
+    BGV: the mod-down keeps the message mod t).  `targets` (the active
+    limbs by default) are the ciphertext limbs the result is computed for,
+    (len(targets), N) each: every step after the digits is limb-local, so a
+    rank of the limb-sharded evaluator computes its own limbs and the special
+    ones only, from the whole d."""
     L = n_ct_limbs
     sp_idx = list(range(L, len(ctx.moduli)))
-    active = level + 1
-    dig, used, lim = compute_digits(d_coeff, level, ctx, L, dnum)
+    keep = list(range(level + 1)) if targets is None else list(targets)
+    dig, used, lim = compute_digits(d_coeff, level, ctx, L, dnum, targets=keep)
     sub_plan = ctx.plan.take(lim)
     dig_ntt = sub_plan.fwd(dig)
-    lim_idx = ctx.index(lim)
+    key_idx = ctx.index(ksk.rows(lim))
     used_idx = ctx.index(used)
     q, rinv = sub_plan.qb(1), sub_plan.rinvb(1)
     acc = []
     for k in (ksk.b, ksk.a):
-        kk = k.index_select(0, used_idx).index_select(1, lim_idx)
+        kk = k.index_select(0, used_idx).index_select(1, key_idx)
         acc.append(_sum_digits(mont_mul(dig_ntt, kk, q, rinv), q))
     out = torch.stack(acc)
     for k_i in range(len(sp_idx) - 1, -1, -1):
-        out = drop_limb(out, sp_idx[k_i], list(range(active)) + sp_idx[:k_i], ctx, t)
+        out = drop_limb(out, sp_idx[k_i], keep + sp_idx[:k_i], ctx, t)
     return out[0], out[1]
 
 

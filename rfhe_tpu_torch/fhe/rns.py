@@ -196,7 +196,15 @@ def drop_limb(data: torch.Tensor, src_k: int, n_keep,
     keep = list(range(n_keep)) if isinstance(n_keep, int) else list(n_keep)
     nk = len(keep)
     src_row = limb_plan(ctx, src_k).inv(data[..., nk:nk + 1, :].contiguous())
-    ck = src_row[..., 0, :]
+    return drop_limb_lifted(data[..., :nk, :], src_row[..., 0, :], src_k, keep, ctx, t)
+
+
+def drop_limb_lifted(kept: torch.Tensor, ck: torch.Tensor, src_k: int, keep: Sequence[int],
+                     ctx: RnsContext, t: Optional[int] = None) -> torch.Tensor:
+    """`drop_limb` given the dropped row's coefficients ck (..., N) and the
+    kept rows (..., len(keep), N): what each kept limb needs of the dropped
+    one, so that a rank holding some of the limbs computes their rows alone
+    (parallel/sharded_ckks.py)."""
     delta = lift_to_limbs(ck, src_k, keep, ctx, centered=True)
     keep_idx = ctx.index(keep)
     q_lo = ctx.plan.tables.q[keep_idx][:, None]
@@ -204,7 +212,7 @@ def drop_limb(data: torch.Tensor, src_k: int, n_keep,
         shift = bgv_lift_shift(bgv_lift_residue(ck, ctx.moduli[src_k], t), src_k, keep, t, ctx)
         delta = sub_mod(delta, shift, q_lo)
     delta_ntt = ctx.plan.take(keep).fwd(delta)
-    num = sub_mod(data[..., :nk, :], delta_ntt, q_lo)
+    num = sub_mod(kept, delta_ntt, q_lo)
     return mul_mod_shoup(num, ctx.qk_inv[src_k, keep_idx][:, None],
                          ctx.qk_inv_shoup[src_k, keep_idx][:, None], q_lo)
 

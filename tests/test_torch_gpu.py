@@ -406,3 +406,49 @@ def test_stacked_plan_and_control_match_cpu(cuda):
     for target in ("mult", "storage"):
         assert standard_ntt_campaign("SBF+DBF", target, 500, 64, q, device="cuda") == \
             standard_ntt_campaign("SBF+DBF", target, 500, 64, q, device="cpu")
+
+
+@pytest.mark.parametrize("what", ["four_step", "mxu", "ckks"])
+def test_sharded_paths_in_an_nccl_world(cuda, what):
+    """A world of one NCCL rank on the card: the sharded NTTs equal the
+    unsharded transforms (the production one: K1/K2), and the limb-sharded
+    evaluator equals the unsharded context, launching the kernels."""
+    import numpy as np
+
+    from rfhe_tpu_torch.fhe import CkksContext, CkksParams
+    from rfhe_tpu_torch.parallel import worlds
+    from rfhe_tpu_torch.parallel.mesh import spawn_world
+    from rfhe_tpu_torch.transform.four_step import FourStepPlan, four_step_ntt
+
+    rng = np.random.default_rng(1)
+    if what == "four_step":
+        n, q = 1024, find_ntt_primes(1024, 28, 1)[0]
+        x1, xb = rng.integers(0, q, n, dtype=np.uint32), rng.integers(0, q, (8, n), dtype=np.uint32)
+        out = spawn_world(worlds.four_step_cases, 1, "nccl",
+                          args=(n, q, x1, xb, 0, (1, 2, 3), (1,), "cuda"))[0]
+        want = four_step_ntt(torch.from_numpy(xb.astype(np.int64)), FourStepPlan.make(n, q, "cpu"))
+        assert np.array_equal(out[1, "fwd", "batched"], want.numpy())
+        assert np.array_equal(out[1, "inv", "batched"], xb)
+        assert out[1, "protected"][1:] == (True, True, True) and not out[1, "flipped"][0]
+    elif what == "mxu":
+        n = 4096
+        primes = find_ntt_primes(n, 30, 12)
+        x = rng.integers(0, min(primes), (12, n), dtype=np.uint32)
+        out = spawn_world(worlds.mxu_cases, 1, "nccl",
+                          args=(n, primes, x, x[None], (3, 77, 5), (1,), "cuda"))[0]
+        plan = NttPlan.make(n, primes, cuda)
+        xt = torch.from_numpy(x.astype(np.int64)).to(cuda)
+        assert np.array_equal(out[1, "fwd"], plan.fwd(xt).cpu().numpy())
+        assert np.array_equal(out[1, "inv"], plan.inv(plan.fwd(xt)).cpu().numpy())
+        assert out[1, "protected"][1].all() and not out[1, "flipped"][1][3]
+    else:
+        params = dict(n=4096, levels=4, q0_bits=30, scale_bits=28)
+        z = rng.uniform(-1, 1, 2048) + 0j
+        out = spawn_world(worlds.ckks_cases, 1, "nccl", args=(params, 7, z, 1, None, True, "cuda"))[0]
+        ckks = CkksContext(CkksParams.make(**params), seed=7, device=cuda)
+        ct = ckks.encrypt(*ckks.encode(z))
+        rot = ckks.rotate(ct, 1)
+        mr = ckks.multiply_relin(ct, ct)
+        for name, want in (("rotate", rot), ("multiply_relin", mr), ("rescale", ckks.rescale(mr)),
+                           ("conjugate", ckks.conjugate(ct))):
+            assert all(np.array_equal(a, b) for a, b in zip(out[name], want.to_numpy())), name

@@ -47,6 +47,11 @@ def test_import_without_jax():
         "import rfhe_tpu_torch.faults.ntt_control, rfhe_tpu_torch.faults.reduction_campaigns\n"
         "import rfhe_tpu_torch.native, rfhe_tpu_torch.oracle, rfhe_tpu_torch.models.motivation\n"
         "import rfhe_tpu_torch.bench.fused_validate\n"
+        "import rfhe_tpu_torch.parallel, rfhe_tpu_torch.parallel.mesh\n"
+        "import rfhe_tpu_torch.parallel.sharded_ckks, rfhe_tpu_torch.parallel.worlds\n"
+        "import rfhe_tpu_torch.transform.distributed, rfhe_tpu_torch.transform.mxu_sharded\n"
+        "import rfhe_tpu_torch.bench.scaling, rfhe_tpu_torch.bench.scaling_mxu\n"
+        "import rfhe_tpu_torch.figures, rfhe_tpu_torch.figures.draw\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items()\n"
         "       if mod is not None and m.split('.')[0] in ('jax', 'rfhe_tpu')]\n"
@@ -73,6 +78,61 @@ def test_source_imports_no_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib", "rfhe_tpu"), (path, name)
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix()
+                                        for p in PKG.rglob("*.py")) + ["chip_smoke.py"])
+def test_only_figures_import_matplotlib(path):
+    """The chip machine has no matplotlib: only the figures package takes it."""
+    tree = ast.parse((ROOT / path).read_text())
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import) for a in node.names]
+    names += [node.module or "" for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.level == 0]
+    uses = any(name.split(".")[0] == "matplotlib" for name in names)
+    assert not uses or path.startswith("rfhe_tpu_torch/figures/"), path
+
+
+def test_rank_refuses_jax():
+    """A rank of a spawned world that loads the JAX package raises, and the
+    world's launcher raises with that rank's message."""
+    from rfhe_tpu_torch.parallel.mesh import spawn_world
+    with pytest.raises(Exception, match="loaded"):
+        spawn_world(__import__, 2, "gloo", args=("rfhe_tpu.numth",), timeout_s=60, deadline_s=120)
+
+
+def test_rank_failure_carries_its_traceback():
+    from rfhe_tpu_torch.parallel.mesh import spawn_world
+    with pytest.raises(Exception, match="No module named 'no_such_module_here'"):
+        spawn_world(__import__, 2, "gloo", args=("no_such_module_here",), timeout_s=60,
+                    deadline_s=120)
+
+
+# rfhe_tpu modules with no file of the same path in the port, and where
+# their work went (ROADMAP.md, "Every module of rfhe_tpu and its counterpart")
+NO_SAME_PATH = {
+    "ops/u32.py": "ops/modarith.py", "ops/const_matmul.py": "ops/ntt.py",
+    "ops/ntt_mxu.py": "ops/ntt.py", "ops/ntt_fused.py": "csrc/ntt.cu",
+    "bench/devtime.py": "device.py", "oracle/__init__.py": "oracle.py",
+    "oracle/ntt.py": "oracle.py", "oracle/baseconv.py": "oracle.py",
+    "oracle/reduction.py": None, "utils/__init__.py": None,
+    "utils/jitcache.py": None, "utils/compilecache.py": None,
+}
+
+
+def test_every_reference_module_has_a_counterpart():
+    ref = {p.relative_to(ROOT / "rfhe_tpu").as_posix() for p in (ROOT / "rfhe_tpu").rglob("*.py")}
+    missing = {m for m in ref if not (PKG / m).exists()}
+    assert missing == set(NO_SAME_PATH)
+    assert all((PKG / where).exists() for where in NO_SAME_PATH.values() if where)
+
+
+def test_world_past_its_deadline_is_killed():
+    import time
+    from rfhe_tpu_torch.parallel.mesh import spawn_world
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="did not end"):
+        spawn_world(time.sleep, 2, "gloo", args=(60,), timeout_s=60, deadline_s=3)
+    assert time.monotonic() - t0 < 30
 
 
 @pytest.fixture(scope="module")
