@@ -162,6 +162,17 @@ transform/mxu_sharded.py, bench/scaling*.py), last, after phase Q:
      harnesses' rows; the wall per sharded op beside the unsharded one and
      NCCL's all_gather, broadcast and all_to_all at these shapes
 
+The repository's two entry files, last, after phase R:
+  S. bench/headline.py (bench.py's counterpart) three times through its
+     main: each prints its JSON line, the warm N=4096 21+1 rotation's
+     microseconds against SEAL's 14,377, and must launch the one-block K1 and
+     K2, which are then held against their plain versions at every shape the
+     headline launched; entry.py's flagship step (the protected four-step NTT
+     of (8, 4096) with its three detectors) on the card equal to a CPU run,
+     error 0, flags included; entry.dryrun_multichip over
+     torch.cuda.device_count() NCCL ranks (one here), whose ranks' K1/K2
+     launches are counted with the headline's
+
 Phase 3 also holds the kernels at those shapes: the t plans (1, 1, 16384)
 at 20 and 17 bits and (1, 1, 4096) at 16, the BEHZ basis (4, 13, 16384) and
 (3, 13, 16384), the chain (4, 10) and (3, 10), and the BGV keyswitch's
@@ -179,6 +190,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import io
 import json
 import os
 import tempfile
@@ -190,10 +202,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from rfhe_tpu_torch import native
-from rfhe_tpu_torch.bench import (fused_validate, northstar, ops_devtime, overheads, perf_suite,
-                                  phase_profile, protected_overhead, real_monitor, roofline,
-                                  scaling, scaling_mxu, sweeps)
+from rfhe_tpu_torch import entry, native
+from rfhe_tpu_torch.bench import (fused_validate, headline, northstar, ops_devtime, overheads,
+                                  perf_suite, phase_profile, protected_overhead, real_monitor,
+                                  roofline, scaling, scaling_mxu, sweeps)
 from rfhe_tpu_torch.device import (DEVICE_TIMER, MODES, card, cuda_ms, device_ms, profile_kernels,
                                    profiled_us, to_numpy_u32, wall_us)
 from rfhe_tpu_torch.faults import evaluator_campaign, ntt_control, reduction_campaigns
@@ -1998,9 +2010,87 @@ def phase_sharded(c: str, ctxs: dict) -> dict:
     return total
 
 
+HEADLINE_RUNS = 3
+
+
+def hold_at_shapes(shapes: dict, ring: NttPlan) -> dict:
+    """K1 and K2 against their plain versions at each (form, batch, L, n) of
+    `shapes` (ring n, the limbs a prefix of `ring`, or all of it): random
+    residues forward, the forward's output back, error 0 and the round
+    trip.  Returns the max abs error per form; the counts are reset after."""
+    err = dict.fromkeys(ntt_cuda.FORMS, 0)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for form, batch, L, n in sorted(shapes):
+        plan = ring if L == ring.L else ring.slice(L)
+        x = torch.randint(0, 1 << 62, (batch, L, n), device="cuda", generator=g) % plan.q_arr[:, None]
+        y = ntt_cuda.fwd(x, plan)
+        back = ntt_cuda.inv(y, plan)
+        large = "" if form in ("fwd", "inv") else "_large"
+        err["fwd" + large] = max(err["fwd" + large], int((y - ntt_fwd_reference(x, plan)).abs().max()))
+        err["inv" + large] = max(err["inv" + large],
+                                 int((back - ntt_inv_reference(y, plan)).abs().max()))
+        if not torch.equal(back, x):
+            raise RuntimeError(f"K2(K1(x)) != x at ({batch}, {L}, {n})")
+    torch.cuda.synchronize()
+    ntt_cuda.KERNELS.reset_counts()
+    if max(err.values()):
+        raise RuntimeError(f"a kernel disagrees with its plain version at the headline's shapes: {err}")
+    return err
+
+
+def phase_entries(c: str) -> tuple:
+    """S. The headline (bench/headline.py) and the entry points (entry.py)
+    through the calls a user makes.  Returns (the K1/K2 launches of the
+    headline and the dry run's ranks, the kernels' errors at the headline's
+    shapes)."""
+    t0 = time.perf_counter()
+    ntt_cuda.KERNELS.reset_counts()
+    readings = []
+    for _ in range(HEADLINE_RUNS):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            headline.main(["--device", "cuda"])
+        line = buf.getvalue().strip()
+        print(line)
+        rec = json.loads(line)
+        if rec["metric"] != "h100_ckks_rotation_n4096_L21_latency" or rec["unit"] != "us":
+            raise RuntimeError(f"headline line {line}")
+        readings.append(rec["value"])
+    torch.cuda.synchronize()
+    k = ntt_cuda.KERNELS
+    launches, shapes = dict(k.launches), dict(k.by_shape)
+    if launches["fwd"] == 0 or launches["inv"] == 0:
+        raise RuntimeError(f"the headline did not launch the one-block K1 and K2: {launches}")
+    err = hold_at_shapes(shapes, NttPlan.make(4096, basis(4096, 1), "cuda"))
+    print(f"[entry] {c}: headline {HEADLINE_RUNS} runs of 30 warm N=4096 21+1 rotations: "
+          f"{', '.join(f'{v:.1f}' for v in readings)} us; K1/K2 launches {launches}; held at "
+          f"{len(shapes)} shapes against the plain versions, max abs err {err} (tolerance 0)")
+    fn, args = entry.entry("cuda")
+    y, ok = fn(*args)
+    cpu_fn, cpu_args = entry.entry("cpu")
+    y_cpu, ok_cpu = cpu_fn(*cpu_args)
+    e = int((y.cpu() - y_cpu).abs().max())
+    if e or not torch.equal(ok.cpu(), ok_cpu) or not bool(ok.all()):
+        raise RuntimeError(f"entry() on the card: max abs err {e} against the CPU, flags "
+                           f"{ok.tolist()} / {ok_cpu.tolist()}")
+    print(f"[entry] entry(): protected four-step NTT of {tuple(y.shape)} on cuda equal to the CPU "
+          f"run, max abs err {e}, flags {ok.tolist()}")
+    ntt_cuda.KERNELS.reset_counts()
+    ranks = entry.dryrun_multichip(torch.cuda.device_count(), "cuda")
+    for r in ranks:
+        print(f"[entry] dryrun_multichip rank {r['rank']}: {r}")
+        for form, count in r["launches"].items():
+            launches[form] += count
+    for form, count in ntt_cuda.KERNELS.launches.items():
+        launches[form] += count
+    print(f"[entry] phase S K1/K2 launches (headline and the dry run's ranks): {launches}; "
+          f"phase S in {time.perf_counter() - t0:.2f} s")
+    return launches, err
+
+
 def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
                    scheme: dict, faults: dict, profiling: dict, validate: dict,
-                   demos: dict, sharded: dict) -> list:
+                   demos: dict, sharded: dict, entries: dict) -> list:
     """One record per kernel form at its path's keyswitch shape, in the form
     that shape takes by itself, with every other shape and form timed in this
     run under `other_shapes`.  `ms` is the device timer's reading, `paced_ms`
@@ -2011,7 +2101,8 @@ def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
     ProtectedBgv paths, of the fault campaigns and the monitor, of the
     profiling layer (phases G-L), of the grid audit (phase M), of the
     motivation demos (phase Q); `launches_sharded` is the limb-sharded CKKS
-    paths' (phase R)."""
+    paths' (phase R), `launches_entry` the headline's and the dry run's
+    (phase S)."""
     records = []
     for d in ("fwd", "inv"):
         for large, key in (("", "4096"), ("_large", "65536")):
@@ -2028,6 +2119,7 @@ def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
                             "launches_validate": validate[d + large],
                             "launches_motivation": demos[d + large],
                             "launches_sharded": sharded[d + large],
+                            "launches_entry": entries[d + large],
                             "max_abs_err": err[d + large], "ms": head["ms"],
                             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                             "bound_by": head["bound_by"], "library_ms": None,
@@ -2096,20 +2188,24 @@ def main() -> None:
     demos = phase_motivation()
     # the multi-device layer (phase R), last
     sharded = phase_sharded(c, ctxs)
+    # the repository's entry files (phase S), last
+    entries, entry_err = phase_entries(c)
     for form in launches:
         launches[form] += (protected[form] + scheme[form] + faults[form] + profiling[form]
-                           + validate[form] + demos[form] + sharded[form])
+                           + validate[form] + demos[form] + sharded[form] + entries[form])
+        err[form] = max(err[form], entry_err[form])
     print(f"[main] kernel launches over all counted paths: {launches}, of which on the protected "
           f"CKKS paths and the campaigns {protected}, on the BGV, BFV and ProtectedBgv paths "
           f"{scheme}, in the fault campaigns and the monitor {faults}, in the profiling layer "
           f"{profiling}, in the grid audit {validate}, in the motivation demos {demos}, on the "
-          f"limb-sharded CKKS paths {sharded}")
+          f"limb-sharded CKKS paths {sharded}, in the headline and the dry run {entries}")
     print(f"[main] on the N=4096 and the two N=65536 paths, by the kernels that ran: {by_kernels}; "
           f"protected: {prot_kernels}")
     if min(launches.values()) == 0 or min(by_kernels.values()) == 0:
         raise RuntimeError(f"kernels that no path launched: {launches}, {by_kernels}")
     print(json.dumps({"kernels": kernel_records(err, launches, times, protected, scheme, faults,
-                                                profiling, validate, demos, sharded)}))
+                                                profiling, validate, demos, sharded,
+                                                entries)}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

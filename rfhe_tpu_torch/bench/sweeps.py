@@ -6,6 +6,9 @@ names and defaults, plus `--device` (default cuda):
   pbits          the three-stage pipeline's collision probability against
                  the prime's bit length, every fault type
   relia_ntt      the protected four-step NTT against q's bit length
+  scenarios      its scenario x target-stage table at N and the first NTT
+                 prime of --qbits-min bits (the evaluator figure's miss rates;
+                 the reference's table came from its native engine)
   barrett_fold   Barrett's detection rate against the fold width and the
                  scheme (T, SN or final check), 37-bit prime, MOF or BF faults
   montgomery     Montgomery's detection rate against the fold width
@@ -56,6 +59,8 @@ BARRETT_FOLD_HEADER = ["fold_width", "use_t", "use_sn", "use_final", "detection_
 MONTGOMERY_HEADER = ["fold_width", "use_m", "use_mp", "detection_rate"]
 BARRETT_FINAL_HEADER = ["s", "model", "protection", "miss_rate", "det_intra_only",
                         "det_sum_only", "det_both", "undetected"]
+SCENARIO_HEADER = ["scenario", "stage", "det_rate", "miss_rate", "batch1_catch", "intra_catch",
+                   "inter_catch", "batch2_catch", "batch_catch"]
 PBITS_NATIVE_HEADER = ["ftype", "pbits", "stage", "trials", "injected", "undetected",
                        "collision_prob"]
 RELIA_NATIVE_HEADER = ["qbits", "q", "kind", "det_rate", "miss_rate", "intra_catch",
@@ -288,6 +293,18 @@ def sweep_relia_ntt(args) -> str:
                                  args.device), "relia_ntt")
 
 
+def sweep_scenarios(args) -> str:
+    from .. import numth
+    from ..faults.campaign import four_step_scenario_table
+    q = numth.find_ntt_prime(args.N, args.qbits_min, negacyclic=False)
+    rows = ([r["scenario"], r["stage"], f"{r['det_rate']:.6f}", f"{r['miss_rate']:.6f}",
+             *(r[c] for c in SCENARIO_HEADER[4:])]
+            for r in four_step_scenario_table(args.trials, args.N, q, args.fold, args.seed,
+                                              args.device))
+    return _write(args, f"reliaNTT_scenarios_N{args.N}_q{q}_T{args.trials}.csv", SCENARIO_HEADER,
+                  rows, "scenarios")
+
+
 def _fw_range(args):
     return range(args.fw_min, args.fw_max + 1, args.fw_step)
 
@@ -390,6 +407,7 @@ def sweep_composition(args) -> str:
 SWEEPS = {
     "pbits": sweep_pbits,
     "relia_ntt": sweep_relia_ntt,
+    "scenarios": sweep_scenarios,
     "relia_ntt_native": sweep_relia_ntt_native,
     "pbits_native": sweep_pbits_native,
     "montgomery_native": sweep_montgomery_native,

@@ -1,8 +1,14 @@
 """Figure pipeline: a copy of `rfhe_tpu/figures/draw.py` over the same CSV
-columns (the port's sweeps write them; the committed `results/` files are
-the defaults).  Every figure name and file name is the reference's; the
-motivation figure computes its demos with the port's `models/motivation.py`,
-on the card unless `--device cpu` is given.
+columns.  Every figure name and file name is the reference's; the motivation
+figure computes its demos with the port's `models/motivation.py`, on the
+card unless `--device cpu` is given.
+
+Each figure reads by default the port's own H100 file, the reference's name
+behind the `h100_` prefix the port's writers give (`DEFAULTS`; the README
+names the command that writes each), never the reference's TPU CSVs, and
+writes into `DEFAULT_OUT`, a directory git ignores, never over the
+reference's committed `figures_out/`.  A title names the device its data
+came from when the file's prefix says it (`h100_`, `cpu_`).
 
   rotation      eva_4/eva_5-class: rotation latency + cost breakdown vs polydim
                 (profile_framewk/draw_rotation.py)
@@ -19,8 +25,8 @@ on the card unless `--device cpu` is given.
                 P_fail = 1-(1-eps)^n_ops (baseline) vs that times the measured
                 detector miss rate (protected)
 
-Usage: python -m rfhe_tpu_torch.figures.draw <name> [--data results/...csv] [--out figures_out]
-       [--device cuda|cpu]
+Usage: python -m rfhe_tpu_torch.figures.draw <name> [--data results/...csv]
+       [--overheads results/...csv] [--out DIR] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -34,14 +40,54 @@ import numpy as np
 
 from .common import PALETTE, new_fig, save
 
+# Each figure's default data: the file the port's own command writes on the
+# card (bench/sweeps.py:prefix), as the README lists.
+DEFAULTS = {
+    "rotation": "results/h100_rotation_profile.csv",
+    "barrett": "results/h100_barrett_fold_MOF_T1000.csv",
+    "ntt_reliability": "results/h100_pbits_W24_N64_T1000.csv",
+    "relia_ntt": "results/h100_reliaNTT_N64_T1000.csv",
+    "err_scatter": "results/h100_flipimpact_logN12.csv",
+    "evaluator": "results/h100_reliaNTT_scenarios_N64_q769_T1000.csv",
+    "end_to_end": "results/h100_atom_overheads.csv",
+    "dnum": "results/h100_dnum_N4096.csv",
+    "pie": "results/h100_op_composition.csv",
+    "poly_rot_mul": "results/h100_rotation_profile.csv",
+}
+DEFAULT_OVERHEADS = "results/h100_atom_overheads.csv"
+DEFAULT_OUT = "build/figures_out/h100"
+DEVICES = {"h100_": "H100", "cpu_": "CPU"}
+
 
 def _read(path):
     with open(path) as f:
         return list(csv.DictReader(f))
 
 
+def _data(args, name: str) -> str:
+    return args.data or DEFAULTS[name]
+
+
+def _optional(path: str, what: str, fallback: str):
+    """The rows of `path`, or None when it is missing; either way the figure
+    prints which data it drew."""
+    if not os.path.exists(path):
+        print(f"[{what}] {path} missing: drawn with {fallback}")
+        return None
+    print(f"[{what}] drawn from {path}")
+    return _read(path)
+
+
+def _title(text: str, path: str) -> str:
+    """`text`, naming the device the data came from when the file's prefix
+    says it: '(H100, measured)'."""
+    dev = next((d for p, d in DEVICES.items() if os.path.basename(path).startswith(p)), None)
+    return text.replace("(measured", f"({dev}, measured") if dev else text
+
+
 def fig_rotation(args):
-    rows = _read(args.data or "results/rotation_profile.csv")
+    path = _data(args, "rotation")
+    rows = _read(path)
     ns = [int(r["n"]) for r in rows]
     total = [float(r["total_us"]) for r in rows]
     cats = ["NTT", "ModMul", "BaseConv", "Others"]
@@ -54,7 +100,7 @@ def fig_rotation(args):
         bottom += frac
     ax.set_xlabel("polynomial degree N")
     ax.set_ylabel("rotation cost (µs)")
-    ax.set_title("CKKS rotation cost breakdown (measured)")
+    ax.set_title(_title("CKKS rotation cost breakdown (measured)", path))
     ax.legend()
     print(save(fig, args.out, "rotation_breakdown.png"))
     fig, ax = new_fig()
@@ -62,12 +108,13 @@ def fig_rotation(args):
     ax.set_yscale("log")
     ax.set_xlabel("polynomial degree N")
     ax.set_ylabel("rotation latency (µs, log)")
-    ax.set_title("CKKS rotation latency vs polydim")
+    ax.set_title(_title("CKKS rotation latency vs polydim (measured)", path))
     print(save(fig, args.out, "rotation_latency.png"))
 
 
 def fig_barrett(args):
-    rows = _read(args.data or "results/barrett_fold_T1000.csv")
+    path = _data(args, "barrett")
+    rows = _read(path)
     schemes = {"T-check": ("1", "0", "0"), "SN-check": ("0", "1", "0"),
                "Final-range": ("0", "0", "1")}
     fig, ax = new_fig()
@@ -82,13 +129,14 @@ def fig_barrett(args):
     ax.set_xlabel("fold width (bits)")
     ax.set_ylabel("detection rate  TP/(TP+FN)")
     ax.set_ylim(0, 1.05)
-    ax.set_title("Barrett detector schemes vs fold width (measured)")
+    ax.set_title(_title("Barrett detector schemes vs fold width (measured)", path))
     ax.legend()
     print(save(fig, args.out, "barrett_detection.png"))
 
 
 def fig_ntt_reliability(args):
-    rows = _read(args.data or "results/pbits_W24_N64_T1000.csv")
+    path = _data(args, "ntt_reliability")
+    rows = _read(path)
     by_type = defaultdict(list)
     for r in rows:
         worst = max(float(r["collision_prob"]), 1e-7)
@@ -106,13 +154,15 @@ def fig_ntt_reliability(args):
     ax.set_yscale("log")
     ax.set_xlabel("prime modulus bits")
     ax.set_ylabel("collision probability (log)")
-    ax.set_title("3-stage pipeline collision probability vs prime bits")
+    ax.set_title(_title("3-stage pipeline collision probability vs prime bits (measured)",
+                        path))
     ax.legend(fontsize=8)
     print(save(fig, args.out, "ntt_reliability.png"))
 
 
 def fig_relia_ntt(args):
-    rows = _read(args.data or "results/reliaNTT_N64_T1000.csv")
+    path = _data(args, "relia_ntt")
+    rows = _read(path)
     fig, ax = new_fig()
     for ci, kind in enumerate(("SBF", "DBF", "MOF1")):
         pts = [(int(r["qbits"]), max(float(r["miss_rate"]), 1e-7))
@@ -124,13 +174,14 @@ def fig_relia_ntt(args):
     ax.set_yscale("log")
     ax.set_xlabel("q bits")
     ax.set_ylabel("miss rate (log)")
-    ax.set_title("Protected four-step NTT miss rate vs modulus width")
+    ax.set_title(_title("Protected four-step NTT miss rate vs modulus width (measured)", path))
     ax.legend()
     print(save(fig, args.out, "relia_ntt_miss.png"))
 
 
 def fig_err_scatter(args):
-    rows = _read(args.data or "results/flipimpact_logN12.csv")
+    path = _data(args, "err_scatter")
+    rows = _read(path)
     fig, ax = new_fig()
     one_sym = sorted((int(r["num_flips"]), float(r["bit_error_rate"]))
                      for r in rows if r["num_symbols"] == "1")
@@ -142,7 +193,7 @@ def fig_err_scatter(args):
             color=PALETTE[1], label="k symbols, 1 flip")
     ax.set_xlabel("k")
     ax.set_ylabel("output bit-error rate")
-    ax.set_title("NTT error propagation (injected faults, measured)")
+    ax.set_title(_title("NTT error propagation (measured, injected faults)", path))
     ax.legend()
     print(save(fig, args.out, "err_scatter.png"))
 
@@ -151,15 +202,17 @@ def fig_evaluator(args):
     """Evaluator failure rate vs raw hardware error rate, one protected
     curve PER FAULT MODEL with the miss rate MEASURED by the repo's own
     campaigns (draw_evaluator_reliability.py:10-35 semantics): reads the
-    committed 1M-trial scenario table (miss per fault kind, averaged over
-    the three pipeline stages) instead of a scalar --miss-rate."""
+    scenario table (miss per fault kind, averaged over the three pipeline
+    stages; `bench.sweeps scenarios` writes the default) instead of a
+    scalar --miss-rate, which draws the curve when the table is missing."""
     n, L, dnum = 32768, 21, 21
     n_ops = n * L * dnum * 3          # keyswitch modmul count order (Rotation)
-    path = args.data or "results/reliaNTT_scenarios_N64_q769_T1000000.csv"
+    path = _data(args, "evaluator")
     miss_by_kind = {}
-    if os.path.exists(path):
+    rows = _optional(path, "evaluator", f"--miss-rate {args.miss_rate:g}")
+    if rows is not None:
         acc = {}
-        for r in _read(path):
+        for r in rows:
             if "+" in r["scenario"]:
                 continue              # single-fault models only (reference)
             acc.setdefault(r["scenario"], []).append(float(r["miss_rate"]))
@@ -177,14 +230,14 @@ def fig_evaluator(args):
     ax.set_yscale("log")
     ax.set_xlabel("raw hardware error rate")
     ax.set_ylabel("evaluator failure rate")
-    ax.set_title("Evaluator failure vs HW error rate (measured miss rates)")
+    ax.set_title(_title("Evaluator failure vs HW error rate (measured miss rates)", path))
     ax.legend(fontsize=6)
     print(save(fig, args.out, "evaluator_reliability.png"))
 
 
 # per-model op composition (share of NTT&INTT / BaseConv / ModMul / Others)
 # — the reference's end-to-end workload mix (end_to_end/draw_end_to_end_cost.py
-# data family); our overheads come from results/atom_overheads.csv (measured)
+# data family); the overheads come from bench/overheads.py's CSV (measured)
 WORKLOADS = {
     "Bootstrapping": {"NTTCost": 0.798, "BaseConvCost": 0.090,
                       "ModmulCost": 0.092, "Others": 0.020},
@@ -207,10 +260,9 @@ def fig_end_to_end(args):
     protected bar (draw_end_to_end_cost.py analog)."""
     ovh = {"NTTCost": 1.02, "BaseConvCost": 1.001, "ModmulCost": 1.14,
            "Others": 2.0}
-    path = args.data or "results/atom_overheads.csv"
-    if os.path.exists(path):
-        for r in _read(path):
-            ovh[r["atom"]] = float(r["overhead"])
+    path = _data(args, "end_to_end")
+    for r in _optional(path, "end_to_end", "the reference's constant overheads") or []:
+        ovh[r["atom"]] = float(r["overhead"])
     cats = ["NTTCost", "BaseConvCost", "ModmulCost", "Others"]
     labels = {"NTTCost": "NTT&INTT", "BaseConvCost": "BaseConv",
               "ModmulCost": "ModMul", "Others": "Others"}
@@ -239,7 +291,7 @@ def fig_end_to_end(args):
     ax.set_xticks(xpos)
     ax.set_xticklabels(xlab, fontsize=8)
     ax.set_ylabel("relative cost (baseline = 100)")
-    ax.set_title("End-to-end cost: baseline vs protected (measured overheads)")
+    ax.set_title(_title("End-to-end cost: baseline vs protected (measured overheads)", path))
     ax.legend(fontsize=8)
     print(save(fig, args.out, "end_to_end_cost.png"))
 
@@ -249,7 +301,8 @@ def fig_dnum(args):
     keyswitch digit groups), from our measured sweep
     (profile_framewk/draw_dnum.py + draw_dnum_rot_mul.py analog).  Two
     stacked panels share the x axis — never a dual-axis chart."""
-    rows = _read(args.data or "results/dnum_N4096.csv")
+    path = _data(args, "dnum")
+    rows = _read(path)
     dnums = [r["dnum"] for r in rows]
     total = np.array([float(r["total_us"]) for r in rows])
     cats = ["NTT", "ModMul", "BaseConv", "Others"]
@@ -265,7 +318,7 @@ def fig_dnum(args):
                width=0.6)
         bottom += frac
     ax.set_ylabel("share of rotation cost (%)")
-    ax.set_title("CKKS rotation breakdown vs dnum (measured)")
+    ax.set_title(_title("CKKS rotation breakdown vs dnum (measured)", path))
     ax.legend(fontsize=8, ncol=4)
     ax2.plot(dnums, total / 1e3, marker="o", color=PALETTE[0])
     ax2.set_xlabel("dnum (keyswitch digit groups)")
@@ -278,7 +331,8 @@ def fig_pie(args):
     fraction of the encrypted dot product each evaluator op costs, and what
     the rotation spends internally.  Drawn as horizontal 100% composition
     bars (the pie form hides small shares; same data, better form)."""
-    rows = _read(args.data or "results/op_composition.csv")
+    path = _data(args, "pie")
+    rows = _read(path)
     groups = defaultdict(list)
     for r in rows:
         groups[r["group"]].append((r["part"], float(r["share"])))
@@ -295,7 +349,7 @@ def fig_pie(args):
             left += share * 100
     ax.set_xlabel("share of cost (%)")
     ax.set_xlim(0, 100)
-    ax.set_title("Measured op composition")
+    ax.set_title(_title("Op composition (measured)", path))
     print(save(fig, args.out, "op_composition.png"))
 
 
@@ -303,14 +357,16 @@ def fig_poly_rot_mul(args):
     """eva_5-class: mult+rotation cost breakdown vs polydim with the
     RFHE protection-overhead multiplier per dim
     (profile_framewk/draw_poly_rot_mul.py analog).  The protected bar uses
-    the MEASURED per-atom overheads (results/atom_overheads.csv)."""
-    rows = _read(args.data or "results/rotation_profile.csv")
+    the MEASURED per-atom overheads (--overheads, bench/overheads.py's CSV
+    by default)."""
+    path = _data(args, "poly_rot_mul")
+    rows = _read(path)
     ovh = {"NTT": 1.02, "BaseConv": 1.001, "ModMul": 1.14, "Others": 2.0}
-    if os.path.exists("results/atom_overheads.csv"):
-        amap = {"NTTCost": "NTT", "BaseConvCost": "BaseConv",
-                "ModmulCost": "ModMul", "Others": "Others"}
-        for r in _read("results/atom_overheads.csv"):
-            ovh[amap.get(r["atom"], r["atom"])] = float(r["overhead"])
+    amap = {"NTTCost": "NTT", "BaseConvCost": "BaseConv",
+            "ModmulCost": "ModMul", "Others": "Others"}
+    for r in _optional(args.overheads, "poly_rot_mul overheads",
+                       "the reference's constant overheads") or []:
+        ovh[amap.get(r["atom"], r["atom"])] = float(r["overhead"])
     cats = ["NTT", "ModMul", "BaseConv", "Others"]
     fig, ax = new_fig(7.5, 4.0)
     x = 0.0
@@ -339,8 +395,7 @@ def fig_poly_rot_mul(args):
     ax.set_xticklabels(xlab)
     ax.set_xlabel("polynomial degree N")
     ax.set_ylabel("rotation+mult cost (ms)")
-    ax.set_title("Baseline vs RFHE-protected cost vs polydim "
-                 "(measured atoms)")
+    ax.set_title(_title("Baseline vs RFHE-protected cost vs polydim (measured atoms)", path))
     ax.legend(fontsize=8)
     print(save(fig, args.out, "poly_rot_mul.png"))
 
@@ -393,7 +448,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("name", choices=sorted(FIGS) + ["all"])
     ap.add_argument("--data", type=str, default=None)
-    ap.add_argument("--out", type=str, default="figures_out")
+    ap.add_argument("--overheads", type=str, default=DEFAULT_OVERHEADS,
+                    help="poly_rot_mul's per-atom overheads (bench/overheads.py's CSV)")
+    ap.add_argument("--out", type=str, default=DEFAULT_OUT)
     ap.add_argument("--miss-rate", type=float, default=2e-7)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the motivation figure's plaintext product runs")

@@ -52,6 +52,7 @@ def test_import_without_jax():
         "import rfhe_tpu_torch.transform.distributed, rfhe_tpu_torch.transform.mxu_sharded\n"
         "import rfhe_tpu_torch.bench.scaling, rfhe_tpu_torch.bench.scaling_mxu\n"
         "import rfhe_tpu_torch.figures, rfhe_tpu_torch.figures.draw\n"
+        "import rfhe_tpu_torch.entry, rfhe_tpu_torch.bench.headline\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items()\n"
         "       if mod is not None and m.split('.')[0] in ('jax', 'rfhe_tpu')]\n"
@@ -124,6 +125,66 @@ def test_every_reference_module_has_a_counterpart():
     missing = {m for m in ref if not (PKG / m).exists()}
     assert missing == set(NO_SAME_PATH)
     assert all((PKG / where).exists() for where in NO_SAME_PATH.values() if where)
+
+
+# Public top-level names of a reference module that its counterpart does not
+# define: where each one's work went (a path in the port), or None where the
+# port needs none, and why.
+NAMES_ELSEWHERE = {
+    "fhe/rns.py": {"base_extend_digit": ("fhe/keys.py", "inlined in the keyswitch")},
+    "numth.py": {"PrimeCtx": ("numth.py", "psi_negacyclic and NttPlan's tables hold its "
+                              "constants"),
+                 "base_conv_matrix": ("ops/baseconv.py", "beside its only user")},
+    "ops/matmul_mod.py": {"np_matmul_mod": (None, "a numpy test oracle; the tests use the "
+                                            "reference's")},
+    "faults/evaluator_campaign.py": {"MISS_STAGES": ("faults/evaluator_campaign.py",
+                                                     "check_row's ks_out branch")},
+    "faults/inject.py": {k: ("faults/ntt_control.py", "the port's kind codes")
+                         for k in ("KIND_SBF", "KIND_DBF", "KIND_MOF1")},
+    "native.py": {"KIND_IDS": ("native.py", "SCENARIOS holds the codes")},
+    "bench/phase_profile.py": {k: ("bench/phase_profile.py", "one profile gives the total "
+                                   "and the phases")
+                               for k in ("rotation_total", "rotation_total_checked")},
+    "bench/roofline.py": {k: (None, "TPU v5e constants; the port's are the H100's")
+                          for k in ("V5E_HBM_BPS", "V5E_BF16_FLOPS", "V5E_INT8_OPS")},
+    "trace/markers.py": {"xla_trace": (None, "a jax.profiler trace; torch.profiler serves "
+                                       "device.py and trace/")},
+    "transform/distributed.py": {"make_mesh": ("parallel/mesh.py", "the one place meshes are made")},
+    "ops/ntt.py": {**{k: ("ops/ntt_stacked.py", "the radix-2 stacked plans")
+                      for k in ("StackedNttPlan", "bit_reverse_indices", "ntt", "intt",
+                                "pointwise_mul", "poly_mul_negacyclic")},
+                   **{k: ("ops/ntt_stacked.py", "and ops/ntt_pease.py for a Pease plan")
+                      for k in ("negacyclic_ntt", "negacyclic_intt")}},
+}
+
+
+def _public_names(path: Path) -> set:
+    """Functions, classes and assigned names at the top level of a module,
+    less those starting with an underscore (imports are not counted)."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for target in getattr(node, "targets", [getattr(node, "target", None)]):
+                elts = target.elts if isinstance(target, ast.Tuple) else [target]
+                names.update(e.id for e in elts if isinstance(e, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_reference_name_has_a_counterpart():
+    ref = ROOT / "rfhe_tpu"
+    missing = {}
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref).as_posix()
+        if (PKG / rel).exists():
+            gone = _public_names(path) - _public_names(PKG / rel)
+            if gone:
+                missing[rel] = gone
+    assert missing == {m: set(names) for m, names in NAMES_ELSEWHERE.items()}
+    for names in NAMES_ELSEWHERE.values():
+        for where, why in names.values():
+            assert why and (where is None or (PKG / where).exists()), (where, why)
 
 
 def test_world_past_its_deadline_is_killed():
