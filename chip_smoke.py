@@ -171,7 +171,21 @@ The repository's two entry files, last, after phase R:
      of (8, 4096) with its three detectors) on the card equal to a CPU run,
      error 0, flags included; entry.dryrun_multichip over
      torch.cuda.device_count() NCCL ranks (one here), whose ranks' K1/K2
-     launches are counted with the headline's
+     launches are counted with the headline's; each headline run first
+     prints the same rotation under jitcache.eager()
+  T. the per-op CUDA graphs (utils/jitcache.py; every public op on the card
+     is one graph replay): the N=4096 path (encrypt, rotate, multiply_relin,
+     rescale, decrypt, decrypt_words), the N=65536 per-limb and dnum=3
+     rotations, the BGV dot product at N=16384, BFV multiply_relin at
+     N=16384 and ProtectedCkks rotate at N=4096, clean and with one fault per
+     stage (the location A or B as tensors: one graph per stage), each
+     graphed A, B, A, B against the eager op in the same process: bit for bit,
+     earlier results unchanged, one capture per signature, the K1/K2 counts
+     of a replay equal to the eager op's; per op the graphed and eager wall
+     (30 queued, one synchronise, alternated), device operations and host
+     launches, capture time, and each context's pool bytes; then K1 and K2
+     launched from a replay equal to the eager launch and to the plain
+     versions at every shape of the N=4096 and N=65536 rotations
 
 Phase 3 also holds the kernels at those shapes: the t plans (1, 1, 16384)
 at 20 and 17 bits and (1, 1, 4096) at 16, the BEHZ basis (4, 13, 16384) and
@@ -206,8 +220,8 @@ from rfhe_tpu_torch import entry, native
 from rfhe_tpu_torch.bench import (fused_validate, headline, northstar, ops_devtime, overheads,
                                   perf_suite, phase_profile, protected_overhead, real_monitor,
                                   roofline, scaling, scaling_mxu, sweeps)
-from rfhe_tpu_torch.device import (DEVICE_TIMER, MODES, card, cuda_ms, device_ms, profile_kernels,
-                                   profiled_us, to_numpy_u32, wall_us)
+from rfhe_tpu_torch.device import (DEVICE_TIMER, MODES, card, cuda_ms, device_ms, op_counts,
+                                   profile_kernels, profiled_us, to_numpy_u32, wall_us)
 from rfhe_tpu_torch.faults import evaluator_campaign, ntt_control, reduction_campaigns
 from rfhe_tpu_torch.faults.campaign import (FAULT_TYPES, four_step_ntt_campaign,
                                             four_step_scenario_table, three_stage_campaign)
@@ -229,6 +243,7 @@ from rfhe_tpu_torch.parallel import worlds
 from rfhe_tpu_torch.parallel.mesh import all_gather_cat, all_to_all_tiled, make_mesh
 from rfhe_tpu_torch.parallel.sharded_ckks import ShardedCkks
 from rfhe_tpu_torch.transform import mxu_sharded
+from rfhe_tpu_torch.utils import jitcache
 from rfhe_tpu_torch.transform.four_step import FourStepPlan, four_step_ntt
 from rfhe_tpu_torch.profile_rotation import profile_op
 from rfhe_tpu_torch.trace import ProfiledRotation
@@ -2050,8 +2065,11 @@ def phase_entries(c: str) -> tuple:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             headline.main(["--device", "cuda"])
-        line = buf.getvalue().strip()
-        print(line)
+        lines = buf.getvalue().strip().splitlines()
+        print("\n".join(lines))
+        if len(lines) != 2 or not lines[0].startswith("eager (no graphs)"):
+            raise RuntimeError(f"the headline printed {lines}")
+        line = lines[-1]
         rec = json.loads(line)
         if rec["metric"] != "h100_ckks_rotation_n4096_L21_latency" or rec["unit"] != "us":
             raise RuntimeError(f"headline line {line}")
@@ -2088,9 +2106,243 @@ def phase_entries(c: str) -> tuple:
     return launches, err
 
 
+# ---------------------------------------------------------------------------
+# T. the per-op CUDA graphs (utils/jitcache.py) against the eager ops
+# ---------------------------------------------------------------------------
+GRAPH_REPS = 30            # calls queued before one synchronise, per wall reading
+GRAPH_ROUNDS = 3           # alternated graphed / eager readings, the median kept
+FAULT_LOCATIONS = ((1, 17, 3), (7, 2049, 29))      # (limb, idx, bit) A and B of a stage
+
+
+def host_arrays(tree) -> list:
+    """The tensors of an op's result, copied to the host."""
+    return [t.cpu().numpy() for t in jitcache.flatten(tree)[0]]
+
+
+def kernel_counts(run) -> dict:
+    """K1/K2 counts of one `run()`: transforms by form, `__global__` launches,
+    transforms by the kernels that ran."""
+    ntt_cuda.KERNELS.reset_counts()
+    run()
+    torch.cuda.synchronize()
+    k = ntt_cuda.KERNELS
+    return {"launches": dict(k.launches), "passes": dict(k.passes),
+            "by_kernels": dict(k.by_kernels)}
+
+
+def paired_walls(run) -> tuple:
+    """(graphed, eager) microseconds per call: GRAPH_REPS calls queued and
+    one synchronise, graphed and eager alternated GRAPH_ROUNDS times, the
+    median of each."""
+    walls = {False: [], True: []}
+    for _ in range(GRAPH_ROUNDS):
+        for is_eager in (False, True):
+            with (jitcache.eager() if is_eager else contextlib.nullcontext()):
+                run()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(GRAPH_REPS):
+                    run()
+                torch.cuda.synchronize()
+            walls[is_eager].append((time.perf_counter() - t0) / GRAPH_REPS * 1e6)
+    return tuple(float(np.median(walls[e])) for e in (False, True))
+
+
+def graph_case(tag: str, name: str, op, a, b, jits) -> dict:
+    """One op through its graphs and under `eager()`: op(a), op(b) eagerly,
+    then graphed A, B, A, B (a new signature's first call captures, every
+    other call replays), each result bit for bit the eager one of its input
+    and every earlier result unchanged after the last call; the K1/K2
+    counts of a replay equal the eager op's; at most one capture per jit and
+    signature, three replays or more.  `jits()` lists the HoistedJits the
+    op runs.  Returns the readings."""
+    with jitcache.eager():
+        want = {"A": host_arrays(op(a)), "B": host_arrays(op(b))}
+    op(a)                       # the first call of a new signature captures
+    before = {id(j): (len(j.graphs), sum(g.replays for g in j.graphs)) for j in jits()}
+    outs = []
+    for label, x in (("A", a), ("B", b), ("A", a), ("B", b)):
+        out = op(x)
+        outs.append((label, out, host_arrays(out)))
+    torch.cuda.synchronize()
+    for i, (label, out, seen) in enumerate(outs):
+        if not all(np.array_equal(s, w) for s, w in zip(seen, want[label])) \
+                or len(seen) != len(want[label]):
+            raise RuntimeError(f"{name}: graphed call {i} ({label}) differs from the eager op")
+        if not all(np.array_equal(s, t) for s, t in zip(seen, host_arrays(out))):
+            raise RuntimeError(f"{name}: result of call {i} ({label}) changed by a later replay")
+    if all(np.array_equal(x, y) for x, y in zip(want["A"], want["B"])):
+        raise RuntimeError(f"{name}: inputs A and B give the same result; the case shows nothing")
+    used = []
+    for j in jits():
+        n0, r0 = before.get(id(j), (0, 0))
+        made, replays = len(j.graphs) - n0, sum(g.replays for g in j.graphs) - r0
+        if made or replays:
+            used.append(j)
+        if made != 0 or 0 < replays < 4:
+            raise RuntimeError(f"{name}: {j.name} captured {made} graphs and replayed "
+                               f"{replays} times over A, B, A, B; one signature and four "
+                               f"replays expected")
+    if not used:
+        raise RuntimeError(f"{name}: no graph replayed")
+    graphs = sum(len(j.graphs) for j in used)
+    replay, eager_run = kernel_counts(lambda: op(b)), None
+    with jitcache.eager():
+        eager_run = kernel_counts(lambda: op(b))
+    if replay != eager_run:
+        raise RuntimeError(f"{name}: K1/K2 counts of a replay {replay} != eager {eager_run}")
+    graphed_us, eager_us = paired_walls(lambda: op(a))
+    g_kernels, g_launches, g_lost = op_counts(lambda: op(a), 3)
+    with jitcache.eager():
+        e_kernels, e_launches, e_lost = op_counts(lambda: op(a), 3)
+    capture_s = sum(g.capture_s for j in used for g in j.graphs)
+    row = {"op": name, "graphed_us": graphed_us, "eager_us": eager_us,
+           "kernels_graphed": g_kernels, "kernels_eager": e_kernels,
+           "host_launches_graphed": g_launches, "host_launches_eager": e_launches,
+           "lost_records": g_lost + e_lost, "graphs": graphs, "capture_s": capture_s,
+           "ntt_per_call": replay["launches"]}
+    print(f"[{tag}] {name}: graphed {graphed_us:.1f} us, eager {eager_us:.1f} us per call "
+          f"({GRAPH_REPS} queued, one synchronise, median of {GRAPH_ROUNDS} alternated rounds); "
+          f"device operations {g_kernels:.0f} graphed / {e_kernels:.0f} eager, host launches "
+          f"{g_launches:.0f} / {e_launches:.0f} per call ({g_lost + e_lost} records lost); "
+          f"NTT transforms per call {replay['launches']} = eager; {graphs} graph(s), capture "
+          f"{capture_s * 1e3:.1f} ms; A, B, A, B bit-exact, earlier results unchanged")
+    return row
+
+
+def jits_of(*owners):
+    """The HoistedJits of `owners` (contexts and evaluators), at call time."""
+    return lambda: [j for o in owners for j in o._jits.values()]
+
+
+def ckks_cases(tag: str, label: str, ctx: CkksContext, rotate_only: bool) -> list:
+    n = ctx.params.n
+    zs = np.random.default_rng(21).uniform(-1, 1, (2, n // 2)) + 0j
+    pts = [ctx.encode(z) for z in zs]
+    rng = ctx.rng
+
+    def encrypt(x):
+        ctx.rng = np.random.default_rng(x[1])
+        return ctx.encrypt(*x[0])
+
+    cta, ctb = encrypt((pts[0], 100)), encrypt((pts[1], 101))
+    rows = [graph_case(tag, f"{label} rotate", lambda ct: ctx.rotate(ct, 1), cta, ctb,
+                       jits_of(ctx))]
+    if not rotate_only:
+        prods = [ctx.multiply_relin(ct, ct) for ct in (cta, ctb)]
+        rows += [graph_case(tag, f"{label} encrypt", encrypt, (pts[0], 100), (pts[1], 101),
+                            jits_of(ctx)),
+                 graph_case(tag, f"{label} multiply_relin", lambda ct: ctx.multiply_relin(ct, ct),
+                            cta, ctb, jits_of(ctx)),
+                 graph_case(tag, f"{label} rescale", ctx.rescale, *prods, jits_of(ctx)),
+                 graph_case(tag, f"{label} decrypt", ctx.decrypt, cta, ctb, jits_of(ctx)),
+                 graph_case(tag, f"{label} decrypt_words", ctx.decrypt_words, cta, ctb,
+                            jits_of(ctx))]
+        err = np.abs(ctx.decrypt_decode(ctx.rotate(cta, 1)) - np.roll(zs[0], -1)).max()
+        if not err <= LIMITS[n][0]:
+            raise RuntimeError(f"{label}: the graphed rotation decrypts with error {err}")
+    ctx.rng = rng
+    return rows
+
+
+def protected_cases(tag: str, label: str, ctx: CkksContext) -> list:
+    """ProtectedCkks rotate, clean and with one fault per stage: A and B are
+    two fault locations of the stage, 0-d tensors on the card, so one
+    graph per stage serves both."""
+    prot = ProtectedCkks(ctx)
+    zs = np.random.default_rng(22).uniform(-1, 1, (2, ctx.params.n // 2)) + 0j
+    cta, ctb = (ctx.encrypt(*ctx.encode(z)) for z in zs)
+    rows = [graph_case(tag, f"{label} protected rotate", lambda ct: prot.rotate(ct, 1),
+                       cta, ctb, jits_of(prot))]
+    for stage in evaluator_campaign.STAGES + ("c1_perm",):
+        a, b = (Fault(stage, *(torch.tensor(v, device="cuda") for v in loc))
+                for loc in FAULT_LOCATIONS)
+        rows.append(graph_case(tag, f"{label} protected rotate, {stage} fault",
+                               lambda f: prot.rotate(cta, 1, f), a, b, jits_of(prot)))
+        _, flags = prot.rotate(cta, 1, a)
+        if stage != "ks_out" and bool(all_ok(flags)):
+            raise RuntimeError(f"{label}: the graphed {stage} fault fired no detector")
+    return rows
+
+
+def phase_graphs(c: str, ctxs: dict, bgv: tuple, bfv: tuple) -> tuple:
+    """T. Every listed path through its graphs and under `eager()` in one
+    process: the N=4096 path (encrypt, rotate, multiply_relin, rescale,
+    decrypt), the N=65536 per-limb and dnum=3 rotations, the BGV dot
+    product at N=16384, BFV multiply_relin at N=16384, ProtectedCkks rotate
+    clean and with one fault per stage at N=4096 (`graph_case`); then K1
+    and K2 launched from a replay equal to the same kernels launched eagerly
+    and to their plain versions at every shape the graphed N=4096 and
+    N=65536 ops launch.  Returns (the K1/K2 launches of the phase, rows)."""
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(ntt_cuda.FORMS, 0)
+    shapes = {}
+    rows = (ckks_cases("graphs", "N=4096", ctxs["N=4096"], rotate_only=False)
+            + ckks_cases("graphs", "N=65536", ctxs["N=65536"], rotate_only=True)
+            + ckks_cases("graphs", f"N=65536 dnum={DNUM}", ctxs[f"N=65536 dnum={DNUM}"],
+                         rotate_only=True))
+    bctx, ct_x, ct_y = bgv
+    rows.append(graph_case("graphs", f"BGV N={bctx.params.n} dot product",
+                           lambda p: dot_product_bgv(bctx, *p), (ct_x, ct_y), (ct_x, ct_x),
+                           jits_of(bctx)))
+    got = bctx.decrypt_decode(dot_product_bgv(bctx, ct_x, ct_y))
+    m1, m2 = bgv_messages(bctx)
+    if not (got == int((m1.astype(object) * m2.astype(object)).sum()) % bctx.t).all():
+        raise RuntimeError("the graphed BGV dot product does not decrypt to sum(x*y) mod t")
+    fctx, ct1, ct2 = bfv
+    rows.append(graph_case("graphs", f"BFV N={fctx.params.n} multiply_relin",
+                           lambda p: fctx.multiply_relin(*p), (ct1, ct2), (ct1, ct1),
+                           jits_of(fctx)))
+    rows += protected_cases("graphs", "N=4096", ctxs["N=4096"])
+    # K1/K2 from a replay against the eager launch and the plain version
+    for name in ("N=4096", "N=65536"):
+        ctx = ctxs[name]
+        ct = ctx.encrypt(*ctx.encode(np.zeros(ctx.params.n // 2) + 0j))
+        ntt_cuda.KERNELS.reset_counts()
+        ctx.rotate(ct, 1)
+        torch.cuda.synchronize()
+        shapes[name] = dict(ntt_cuda.KERNELS.by_shape)
+    err = dict.fromkeys(ntt_cuda.FORMS, 0)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for name, by_shape in shapes.items():
+        ring = ctxs[name].ctx.plan
+        for form, batch, L, n in sorted(by_shape):
+            plan = ring.slice(L) if L < ring.L else ring
+            inverse = form.startswith("inv")
+            kernel = ntt_cuda.inv if inverse else ntt_cuda.fwd
+            plain = ntt_inv_reference if inverse else ntt_fwd_reference
+            replayed = jitcache.hoisted_jit(lambda x: kernel(x, plan), name=f"{form} {batch}x{L}x{n}")
+            for _ in range(3):          # capture, then two replays on new inputs
+                x = torch.randint(0, 1 << 62, (batch, L, n), device="cuda",
+                                  generator=g) % plan.q_arr[:, None]
+                y = replayed(x)
+                e = kernel(x, plan)
+                if not torch.equal(y, e):
+                    raise RuntimeError(f"{form} ({batch}, {L}, {n}): a replay differs from the "
+                                       f"eager launch")
+                err[form] = max(err[form], int((y - plain(x, plan)).abs().max()))
+    if max(err.values()):
+        raise RuntimeError(f"a replayed kernel disagrees with its plain version: {err}")
+    print(f"[graphs] K1/K2 replayed at {sum(len(s) for s in shapes.values())} shapes of the "
+          f"N=4096 and N=65536 rotations: equal to the eager launches bit for bit, max abs err "
+          f"against the plain versions {err} (tolerance 0)")
+    ntt_cuda.KERNELS.reset_counts()
+    for owner in (ctxs["N=4096"], ctxs["N=65536"], ctxs[f"N=65536 dnum={DNUM}"], bctx, fctx):
+        pool = owner._graphs
+        print(f"[graphs] {c}: pool of {type(owner).__name__} N={owner.params.n} "
+              f"(dnum={owner.dnum}): {pool.graphs} graphs, {pool.bytes} bytes reserved by "
+              f"their captures, {pool.capture_s:.2f} s capturing")
+    for row in rows:
+        for form, count in row["ntt_per_call"].items():
+            launches[form] += count
+    write_rows("h100_graphs.csv", list(rows[0]), rows)
+    print(f"[graphs] phase T in {time.perf_counter() - t0:.2f} s, {len(rows)} ops")
+    return launches, err, rows
+
+
 def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
                    scheme: dict, faults: dict, profiling: dict, validate: dict,
-                   demos: dict, sharded: dict, entries: dict) -> list:
+                   demos: dict, sharded: dict, entries: dict, graphs: dict) -> list:
     """One record per kernel form at its path's keyswitch shape, in the form
     that shape takes by itself, with every other shape and form timed in this
     run under `other_shapes`.  `ms` is the device timer's reading, `paced_ms`
@@ -2102,7 +2354,8 @@ def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
     profiling layer (phases G-L), of the grid audit (phase M), of the
     motivation demos (phase Q); `launches_sharded` is the limb-sharded CKKS
     paths' (phase R), `launches_entry` the headline's and the dry run's
-    (phase S)."""
+    (phase S), `launches_graphs` the graphed and eager ops of phase T (each
+    NTT of a replay counted as one launch of its kernel)."""
     records = []
     for d in ("fwd", "inv"):
         for large, key in (("", "4096"), ("_large", "65536")):
@@ -2120,6 +2373,7 @@ def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
                             "launches_motivation": demos[d + large],
                             "launches_sharded": sharded[d + large],
                             "launches_entry": entries[d + large],
+                            "launches_graphs": graphs[d + large],
                             "max_abs_err": err[d + large], "ms": head["ms"],
                             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                             "bound_by": head["bound_by"], "library_ms": None,
@@ -2188,24 +2442,28 @@ def main() -> None:
     demos = phase_motivation()
     # the multi-device layer (phase R), last
     sharded = phase_sharded(c, ctxs)
-    # the repository's entry files (phase S), last
+    # the repository's entry files (phase S)
     entries, entry_err = phase_entries(c)
+    # the per-op graphs against the eager ops (phase T), last
+    graphs, graph_err, _ = phase_graphs(c, ctxs, bgv, bfv)
     for form in launches:
         launches[form] += (protected[form] + scheme[form] + faults[form] + profiling[form]
-                           + validate[form] + demos[form] + sharded[form] + entries[form])
-        err[form] = max(err[form], entry_err[form])
+                           + validate[form] + demos[form] + sharded[form] + entries[form]
+                           + graphs[form])
+        err[form] = max(err[form], entry_err[form], graph_err[form])
     print(f"[main] kernel launches over all counted paths: {launches}, of which on the protected "
           f"CKKS paths and the campaigns {protected}, on the BGV, BFV and ProtectedBgv paths "
           f"{scheme}, in the fault campaigns and the monitor {faults}, in the profiling layer "
           f"{profiling}, in the grid audit {validate}, in the motivation demos {demos}, on the "
-          f"limb-sharded CKKS paths {sharded}, in the headline and the dry run {entries}")
+          f"limb-sharded CKKS paths {sharded}, in the headline and the dry run {entries}, in "
+          f"the graphs phase {graphs}")
     print(f"[main] on the N=4096 and the two N=65536 paths, by the kernels that ran: {by_kernels}; "
           f"protected: {prot_kernels}")
     if min(launches.values()) == 0 or min(by_kernels.values()) == 0:
         raise RuntimeError(f"kernels that no path launched: {launches}, {by_kernels}")
     print(json.dumps({"kernels": kernel_records(err, launches, times, protected, scheme, faults,
                                                 profiling, validate, demos, sharded,
-                                                entries)}))
+                                                entries, graphs)}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,11 @@ one synchronise, the host clock around them.  On the card the rotation runs
 the hand NTT kernels (the one-block K1 and K2 at N=4096); `--device cpu`
 runs their plain versions, with the host's times.
 
+On the card each rotation is one replay of the op's CUDA graph
+(`utils/jitcache.py`), as each is one jit program in the reference; a line
+before the JSON line gives the same rotation under `jitcache.eager()` (the
+op's kernels launched one by one), with the card's name and power limit.
+
 Prints ONE JSON line {"metric", "value", "unit", "vs_baseline", "card"}: the
 metric is the reference's name behind the device prefix
 (`h100_ckks_rotation_n4096_L21_latency` on the card), `card` the card's name
@@ -28,6 +33,7 @@ import torch
 
 from ..device import card, require
 from ..fhe import CkksContext, CkksParams
+from ..utils.jitcache import eager
 from .sweeps import prefix
 
 BASELINE_ROTATION_US = 14_377.0   # SEAL 4.1, N=4096, 21 limbs (CPU): bench.py:22
@@ -66,7 +72,13 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    out = rotation_bench(device=args.device)   # any exception propagates: exit nonzero
+    # any exception propagates: exit nonzero
+    if require(args.device).type == "cuda":
+        with eager():
+            e = rotation_bench(device=args.device)
+        print(f"eager (no graphs): {e['value']} us per warm rotation, vs_baseline "
+              f"{e['vs_baseline']}, on {e['card']}")
+    out = rotation_bench(device=args.device)
     print(json.dumps(out))
 
 

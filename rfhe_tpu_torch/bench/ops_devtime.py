@@ -17,6 +17,10 @@ jit); on the card each row's method follows the op's launch count
   device-unresolved  a row that still reads 0 after the reference's adaptive
                    escalation (reps x4, twice) has no number, never a bare 0.0
 
+`launches` are the host's launches per call (kernels, graph launches and
+copies: a public evaluator op is one graph replay with its input copies and
+output clones), `kernels` the device operations that ran per call.
+
 Keys are drawn before any row is timed (a lazily drawn key inside a timed
 region would be measured).  BGV and BFV take a t of 16 bits, as the
 reference: a 16-bit prime t ≡ 1 (mod 2n) exists at n = 4096 (t = 40961) but
@@ -37,19 +41,20 @@ import numpy as np
 from ..device import host_us, op_us, require
 from .sweeps import prefix
 
-COLUMNS = ["op", "mode", "us", "launches"]
+COLUMNS = ["op", "mode", "us", "launches", "kernels"]
 T_BITS = 16
 
 
 def _row(name, reading) -> dict:
-    us, mode, launches = reading
+    us, mode, launches, kernels = reading
+    blank = lambda v: "" if v is None else v
     return {"op": name, "mode": mode, "us": "" if us is None else round(us, 3),
-            "launches": "" if launches is None else launches}
+            "launches": blank(launches), "kernels": blank(kernels)}
 
 
 def _wall(name, fn, device, iters=50) -> dict:
     return {"op": name, "mode": "wall", "us": round(host_us(fn, device, iters), 3),
-            "launches": ""}
+            "launches": "", "kernels": ""}
 
 
 def measure(n: int, levels: int, device: str = "cuda") -> list:

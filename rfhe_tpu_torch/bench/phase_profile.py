@@ -17,7 +17,12 @@ it, `rotate_us` is the kernel total of `CkksContext.rotate` profiled
 in the same session, and `lost_records` the device records that session
 lost (a long process has lost a few; the most complete of three sessions
 counts).  On the CPU (`--device cpu`) the phases are the ranges' host times
-('wall' mode), and total_us is the ROTATE range's.
+('wall' mode), and total_us is the ROTATE range's.  On the card each phase
+is a graph replay (`trace/profiled.py`): its kernels are placed at the graph
+launch inside its range.  The copies into a graph's static inputs and out of
+its outputs (`Memcpy` records, `GLUE`) are the cost of splitting the
+rotation into graphs, not work of a phase: they count in no phase and not in
+`rotate_us` (whose one graph has its own four).
 
 Phases (reference kernel-line categories, profile_framewk sum_trace):
   PERMUTE   Galois slot gather
@@ -59,6 +64,7 @@ COLUMNS = ["n", "limbs", "dnum", "PERMUTE_us", "INTT_us", "BASECONV_us", "NTT_us
            "MODDOWN_us", "MD_INTT_us", "MD_BASECONV_us", "MD_NTT_us", "MD_MODMUL_us", "total_us",
            "NTT", "ModMul", "BaseConv", "Others", "rotate_us", "lost_records", "mode"]
 TAGS = ("ROTATE",) + PHASES + MODDOWN_PARTS
+GLUE = "Memcpy"               # a graph's input copies and output clones
 ALONE = "CTX_ROTATE"          # the range of CkksContext.rotate profiled beside
 
 
@@ -93,6 +99,8 @@ def attribute(events, reps: int) -> Dict[str, float]:
         return {t: sum(e - s for s, e in spans) / reps for t, spans in ranges.items()}
     out = dict.fromkeys(TAGS, 0.0)
     for ev in device_records(events, skip=TAGS + (ALONE,))[0]:
+        if ev.name.startswith(GLUE):
+            continue
         at = launched_at.get(ev.id, ev.time_range.start)
         inside = [t for t, spans in ranges.items() if any(s <= at <= e for s, e in spans)]
         if "ROTATE" not in inside or sum(t in PHASES for t in inside) != 1:
@@ -145,7 +153,7 @@ def phase_times(ckks, level: Optional[int] = None, reps: int = 5) -> Dict[str, f
     out = attribute([ev for ev in events if ev.id not in launched
                      or ev.device_type == torch.autograd.DeviceType.CPU], reps)
     out["rotate"] = sum(ev.time_range.end - ev.time_range.start for ev in device
-                        if ev.id in launched) / reps
+                        if ev.id in launched and not ev.name.startswith(GLUE)) / reps
     out["lost"] = lost
     return out
 

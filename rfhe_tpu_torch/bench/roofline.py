@@ -157,7 +157,7 @@ def measure(n: int, limbs: int, batch: int, qbits: int = 30, device="cuda",
               ("pease_fwd", lambda: ntt_pease.negacyclic_ntt(x, pease))]
     rows = []
     for name, fn in impls:
-        us, mode, _ = op_us(fn, dev, reps=20 if name.startswith("kernel") else 5)
+        us, mode, _, _ = op_us(fn, dev, reps=20 if name.startswith("kernel") else 5)
         rows.append(row(name, n, limbs, batch, us, mode, sm_mhz if dev.type == "cuda" else None))
     return rows
 

@@ -148,7 +148,10 @@ def device_ms(fn, reps: int = 20) -> float:
 QUEUED_LAUNCHES = 40
 MODES = ("device-timer", "device-profiler", "wall", "device-unresolved")
 
-_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
+# What the host launches: kernels, CUDA graphs (one launch replays an op's
+# kernels, utils/jitcache.py) and copies (a graph's input copies and
+# output clones).
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync")
 _PAD_KERNEL = "spin_kernel"          # torch.cuda._sleep's kernel
 MEASURED = "measured"
 
@@ -240,6 +243,15 @@ def profile_kernels(fn, reps: int = 20, match: str = "", between=None) -> tuple:
     raise RuntimeError(f"the profiler recorded no device time for kernels matching {match!r}")
 
 
+def op_counts(fn, reps: int = 5) -> tuple:
+    """(device operations, host launches, lost records) per call of `fn` on
+    the card, from the most complete of up to three torch.profiler sessions
+    (`_profile`): the kernels and copies that ran, and what the host launched
+    (kernels, graph launches, copies)."""
+    _, kernels, launches, lost = _profile(fn, reps)
+    return kernels, launches, lost
+
+
 def profiled_us(fn, reps: int = 20, match: str = "", between=None) -> float:
     """Device microseconds per call of `fn` by torch.profiler
     (`profile_kernels`)."""
@@ -273,19 +285,23 @@ def resolve_reading(measure, reps: int, escalations: int = 2):
 
 
 def op_us(fn, device, reps: int = 20) -> tuple:
-    """(microseconds per call or None, mode, launches per call) of `fn` on
-    `device`.  On a CUDA device the op's kernel launches, counted from the
-    host's launch records in a torch.profiler session, pick the method: up to QUEUED_LAUNCHES, `device_ms` ('device-timer');
-    above, the profiler's kernel sum ('device-profiler'); a reading that stays
-    0 is 'device-unresolved'.  On the CPU the host clock per call ('wall',
-    launches None): no device metric is read there."""
+    """(microseconds per call or None, mode, host launches per call, device
+    operations per call) of `fn` on `device`.  On a CUDA device both counts
+    come from a torch.profiler session: the host's launch records (kernels,
+    graph launches and copies: a graphed op costs one graph launch, its input
+    copies and its output clones) and the device records (the kernels and
+    copies that ran).  The host launches pick the method: up to
+    QUEUED_LAUNCHES, `device_ms` ('device-timer'); above, the profiler's kernel
+    sum ('device-profiler'); a reading that stays 0 is 'device-unresolved'.
+    On the CPU the host clock per call ('wall', both counts None): no device
+    metric is read there."""
     if torch.device(device).type != "cuda":
         fn()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
-        return (time.perf_counter() - t0) / reps * 1e6, "wall", None
-    first, _, launches, _ = _profile(fn, reps)
+        return (time.perf_counter() - t0) / reps * 1e6, "wall", None, None
+    first, kernels, launches, _ = _profile(fn, reps)
     if launches <= QUEUED_LAUNCHES:
         us, ok = resolve_reading(lambda r: device_ms(fn, r) * 1e3, reps)
         mode = "device-timer"
@@ -293,7 +309,7 @@ def op_us(fn, device, reps: int = 20) -> tuple:
         readings = [first]
         us, ok = resolve_reading(lambda r: readings.pop() if readings else profiled_us(fn, r), reps)
         mode = "device-profiler"
-    return us, (mode if ok else "device-unresolved"), launches
+    return us, (mode if ok else "device-unresolved"), launches, kernels
 
 
 def host_us(fn, device, iters: int = 50) -> float:

@@ -12,8 +12,10 @@ covered stage each flip that changes the output is detected; ks_out, a flip
 into the final output after the last check, is never detected; at least 99%
 of the injections change the output (fewer means injections are lost).
 
-The trials of a stage run one after another on the host, each an eager
-protected op; the reference runs them as one vmapped program.
+The trials of a stage run one after another on the host; on a card each
+trial replays the stage's one cached program (`ProtectedCkks._jit`), its
+(limb, idx, bit) read from the triples drawn once onto the device.  The
+reference runs the trials as one vmapped program.
 
 Usage: python -m rfhe_tpu_torch.faults.evaluator_campaign [--n 1024]
            [--levels 3] [--trials 4096] [--seed 0]
@@ -63,10 +65,12 @@ def stage_campaign(prot, ct, r: int, stage: str, trials: int, seed: int = 0,
     assert bool(all_ok(clean_flags)), (
         f"clean {op} raises detector flags: "
         f"{[k for k, v in clean_flags.items() if not bool(torch.all(v))]}")
-    li, ix, bi = triples(ct.level, prot.ckks.params.n, trials, seed)
+    dev = prot.ckks.ctx.device
+    li, ix, bi = (torch.from_numpy(v).to(dev)
+                  for v in triples(ct.level, prot.ckks.params.n, trials, seed))
     changed, detected, fired = [], [], {}
-    for l, i, b in zip(li.tolist(), ix.tolist(), bi.tolist()):
-        out, flags = runner(Fault(stage, l, i, b))
+    for j in range(trials):
+        out, flags = runner(Fault(stage, li[j], ix[j], bi[j]))
         changed.append(torch.any(out.c[0].data != clean.c[0].data)
                        | torch.any(out.c[1].data != clean.c[1].data))
         f = {k: ~torch.all(v) for k, v in flags.items()}

@@ -13,7 +13,9 @@ products become `(x·w) % q` on int64, which is the same residue for every
 word below 2^32 that it takes.  The Bsk basis has its own NTT plan, which
 launches the CUDA kernels on a card; it is used only for forward/inverse
 pairs and pointwise products, so its slot order does not show.  Batching is
-BGV's (`fhe/bgv.py`).
+BGV's (`fhe/bgv.py`), and so are the cached programs: encrypt, decrypt,
+the multiply per level, relinearize and the Galois ops run through `_jit`
+with the reference's keys.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from ..ops.baseconv import BaseConvPlan, base_conv
 from ..ops.modarith import add_mod, mont_mul, sub_mod
 from ..ops.ntt import NttPlan
 from .bgv import BatchedContext
-from .ckks import Ciphertext, encrypt_public, rns_to_signed
+from .ckks import Ciphertext, draw_public, encrypt_with, rns_to_signed
 from .rns import RnsPoly, poly_mul_pointwise, poly_ntt
 
 
@@ -193,6 +195,7 @@ class BfvContext(BatchedContext):
         super().__init__(params, special_bits, seed, dnum, device)
         self._behz: Dict[int, BehzPlan] = {}
         self._gamma_plans: Dict[int, GammaDecryptPlan] = {}
+        self._deltas: Dict[int, torch.Tensor] = {}
 
     def behz(self, level: int) -> BehzPlan:
         if level not in self._behz:
@@ -209,20 +212,24 @@ class BfvContext(BatchedContext):
     def encrypt(self, pt_coeffs_t: np.ndarray, level: Optional[int] = None) -> Ciphertext:
         """Public-key encryption of Δ·m, Δ = ⌊Q_level/t⌋."""
         lvl = self.L - 1 if level is None else level
-        mods = self.params.moduli[:lvl + 1]
-        delta = math.prod(mods) // self.t
+        if lvl not in self._deltas:
+            mods = self.params.moduli[:lvl + 1]
+            delta = math.prod(mods) // self.t
+            self._deltas[lvl] = _col([delta % p for p in mods], self.device)
+        delta_col = self._deltas[lvl]
         q = self.ctx.plan_at(lvl).qb(1)
-        dm = to_torch(pt_coeffs_t, self.device)[None, :] * _col([delta % p for p in mods],
-                                                                 self.device) % q
-        c0, c1 = encrypt_public(self.ctx, self.pk, self.rng, dm, self.params.sigma)
+        m = to_torch(pt_coeffs_t, self.device)
+        draws = draw_public(self.ctx, self.rng, lvl, self.params.sigma)
+        c0, c1 = self._jit(("encrypt", lvl), lambda m, u, e0, e1, pk: encrypt_with(
+            self.ctx, m[None, :] * delta_col % q, u, e0, e1, pk))(m, *draws, self.pk)
         return Ciphertext([RnsPoly(c0, True), RnsPoly(c1, True)], 1.0)
 
     def decrypt_coeffs_t(self, ct: Ciphertext, exact: bool = False) -> np.ndarray:
         """m = ⌊t·[c(s)]_Q/Q⌉ mod t, (n,) uint32.  The default is the BEHZ
         γ-correction on the device; exact=True rounds the host's CRT."""
         lvl = ct.level
-        x = self._decrypt_coeffs(ct)
         if exact:
+            x = self._decrypt_coeffs(ct)
             moduli = [int(q) for q in self.params.moduli[:lvl + 1]]
             Q = math.prod(moduli)
             signed = rns_to_signed(to_numpy_u32(x), moduli)
@@ -231,7 +238,9 @@ class BfvContext(BatchedContext):
         if lvl not in self._gamma_plans:
             self._gamma_plans[lvl] = GammaDecryptPlan.make(self.params.moduli[:lvl + 1], self.t,
                                                            self.device)
-        return to_numpy_u32(self._gamma_plans[lvl].decrypt_mod_t(x))
+        gp = self._gamma_plans[lvl]
+        return to_numpy_u32(self._jit(("decrypt_g", ct.size, lvl), lambda cs, sk: gp.decrypt_mod_t(
+            self._decrypt_impl(cs, sk)))([c.data for c in ct.c], self.sk))
 
     # -- evaluator ----------------------------------------------------------------
     def _multiply_impl(self, a0, a1, b0, b1, bp: BehzPlan) -> torch.Tensor:
@@ -255,8 +264,9 @@ class BfvContext(BatchedContext):
 
     def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         assert a.size == 2 and b.size == 2 and a.level == b.level
-        out = self._multiply_impl(a.c[0].data, a.c[1].data, b.c[0].data, b.c[1].data,
-                                  self.behz(a.level))
+        bp = self.behz(a.level)
+        out = self._jit(("multiply", a.level), lambda a0, a1, b0, b1: self._multiply_impl(
+            a0, a1, b0, b1, bp))(a.c[0].data, a.c[1].data, b.c[0].data, b.c[1].data)
         return Ciphertext([RnsPoly(o, True) for o in out], 1.0)
 
     def square(self, a: Ciphertext) -> Ciphertext:

@@ -13,7 +13,11 @@ order; the port's t plan (`NttPlan`, which launches the CUDA kernels on a
 card) has another order, so `_slot_map` is built on the port's order and
 names the same evaluation points: the coefficients and the matrices are the
 reference's.  Both plans put the slots in the Montgomery domain (×2^32 mod
-t).  `BgvContext` and `fhe.bfv.BfvContext` share `BatchedContext`.
+t).  `BgvContext` and `fhe.bfv.BfvContext` share `BatchedContext`.  As in the
+reference, encrypt, decrypt and the evaluator's keyswitching ops run through
+one cached program per (op, signature) (`_jit`, the reference's keys; a CUDA
+graph on a card, `utils/jitcache.py`); add, sub and multiply_plain run as
+they are, as there.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from ..device import to_numpy_u32, to_torch
 from ..ops.crt64 import Crt64Plan, crt_to_words, words_to_signed
 from ..ops.modarith import mont_mul
 from ..ops.ntt import NttPlan, _slot_order, split_n
-from .ckks import Ciphertext, dot_secret, encrypt_public, rns_to_signed
+from ..utils.jitcache import GraphPool, HoistedJit, hoisted_jit
+from .ckks import Ciphertext, dot_secret, draw_public, encrypt_with, rns_to_signed
 from .keys import KeyGen, KeySwitchKey, keyswitch
 from .params import make_prime_chain
 from .rns import (
@@ -97,6 +102,13 @@ class BatchedContext:
         s2 = mont_mul(self.sk.s_ntt, self.sk.s_ntt, q, rinv)
         self.rlk = self.keygen.gen_keyswitch(self.sk, s2, self.rng, self.noise_factor, dnum)
         self._galois: Dict[int, KeySwitchKey] = {}
+        self._jits: Dict = {}
+        self._graphs = GraphPool()
+
+    def _jit(self, name, fn) -> HoistedJit:
+        if name not in self._jits:
+            self._jits[name] = hoisted_jit(fn, self._graphs, name)
+        return self._jits[name]
 
     def galois_key(self, g: int) -> KeySwitchKey:
         """Galois key for X -> X^g, drawn from the context's rng on first use."""
@@ -128,9 +140,13 @@ class BatchedContext:
     def decrypt_decode(self, ct: Ciphertext) -> np.ndarray:
         return self.decode(self.decrypt_coeffs_t(ct))
 
+    def _decrypt_impl(self, comps, sk) -> torch.Tensor:
+        return self.ctx.plan_at(comps[0].shape[0] - 1).inv(dot_secret(self.ctx, sk.s_ntt, comps))
+
     def _decrypt_coeffs(self, ct: Ciphertext) -> torch.Tensor:
         """[c(s)]_Q residues (level+1, N), coefficient domain."""
-        return self.ctx.plan_at(ct.level).inv(dot_secret(self.ctx, self.sk, ct))
+        return self._jit(("decrypt", ct.size, ct.level), self._decrypt_impl)(
+            [c.data for c in ct.c], self.sk)
 
     # -- evaluator ----------------------------------------------------------
     def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
@@ -141,28 +157,35 @@ class BatchedContext:
         assert a.correction == b.correction and a.level == b.level
         return Ciphertext([poly_sub(x, y, self.ctx) for x, y in zip(a.c, b.c)], 1.0, a.correction)
 
-    def relinearize(self, ct: Ciphertext) -> Ciphertext:
-        assert ct.size == 3
+    def _relinearize_impl(self, ct: Ciphertext, rlk: KeySwitchKey) -> Ciphertext:
         d2_coeff = poly_intt(ct.c[2], self.ctx)
-        k0, k1 = keyswitch(d2_coeff.data, self.rlk, ct.level, self.ctx, self.L,
+        k0, k1 = keyswitch(d2_coeff.data, rlk, ct.level, self.ctx, self.L,
                            t=self.ks_t, dnum=self.dnum)
         c0 = poly_add(ct.c[0], RnsPoly(k0, True), self.ctx)
         c1 = poly_add(ct.c[1], RnsPoly(k1, True), self.ctx)
         return Ciphertext([c0, c1], 1.0, ct.correction)
 
+    def relinearize(self, ct: Ciphertext) -> Ciphertext:
+        assert ct.size == 3
+        return self._jit("relinearize", self._relinearize_impl)(ct, self.rlk)
+
     def multiply_relin(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         return self.relinearize(self.multiply(a, b))
 
-    def apply_galois(self, ct: Ciphertext, g: int) -> Ciphertext:
-        """σ_g then keyswitch σ_g(s) -> s."""
-        assert ct.size == 2
-        ksk = self.galois_key(g)
+    def _apply_galois_impl(self, ct: Ciphertext, ksk: KeySwitchKey, g: int) -> Ciphertext:
         c0g = poly_automorphism(ct.c[0], g, self.ctx)
         c1g = poly_automorphism(ct.c[1], g, self.ctx)
         k0, k1 = keyswitch(poly_intt(c1g, self.ctx).data, ksk, ct.level, self.ctx, self.L,
                            t=self.ks_t, dnum=self.dnum)
         c0 = poly_add(c0g, RnsPoly(k0, True), self.ctx)
         return Ciphertext([c0, RnsPoly(k1, True)], 1.0, ct.correction)
+
+    def apply_galois(self, ct: Ciphertext, g: int) -> Ciphertext:
+        """σ_g then keyswitch σ_g(s) -> s."""
+        assert ct.size == 2
+        ksk = self.galois_key(g)
+        return self._jit(("galois", g),
+                         lambda c, k: self._apply_galois_impl(c, k, g))(ct, ksk)
 
     def rotation_galois_element(self, r: int) -> int:
         n = self.params.n
@@ -197,7 +220,10 @@ class BgvContext(BatchedContext):
 
     def encrypt(self, pt: RnsPoly) -> Ciphertext:
         """Public-key encryption with t·e noise."""
-        c0, c1 = encrypt_public(self.ctx, self.pk, self.rng, pt.data, self.params.sigma, self.t)
+        lvl = pt.level
+        draws = draw_public(self.ctx, self.rng, lvl, self.params.sigma, self.t)
+        c0, c1 = self._jit(("encrypt", lvl), lambda m, u, e0, e1, pk: encrypt_with(
+            self.ctx, m, u, e0, e1, pk))(pt.data, *draws, self.pk)
         return Ciphertext([RnsPoly(c0, True), RnsPoly(c1, True)], 1.0)
 
     def decrypt_coeffs_t(self, ct: Ciphertext, exact: bool = False) -> np.ndarray:
@@ -207,23 +233,34 @@ class BgvContext(BatchedContext):
         object-int CRT."""
         lvl = ct.level
         corr = ct.correction % self.t
-        x = self._decrypt_coeffs(ct)
         if exact:
-            signed = rns_to_signed(to_numpy_u32(x), self.params.moduli[:lvl + 1])
+            signed = rns_to_signed(to_numpy_u32(self._decrypt_coeffs(ct)),
+                                   self.params.moduli[:lvl + 1])
             return ((signed * corr) % self.t).astype(np.uint32)
         if lvl not in self._crt64_plans:
             self._crt64_plans[lvl] = Crt64Plan.make(self.params.moduli[:lvl + 1], self.device)
-        hi, lo = crt_to_words(x, self._crt64_plans[lvl])
+        cplan = self._crt64_plans[lvl]
+        hi, lo = self._jit(("decrypt64", ct.size, lvl), lambda cs, sk: crt_to_words(
+            self._decrypt_impl(cs, sk), cplan))([c.data for c in ct.c], self.sk)
         signed = words_to_signed(hi.cpu().numpy(), lo.cpu().numpy())
         return ((np.mod(signed, self.t) * corr) % self.t).astype(np.uint32)
 
-    def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        """Tensor product (a0, a1)×(b0, b1) -> (d0, d1, d2); corrections multiply."""
-        assert a.size == 2 and b.size == 2 and a.level == b.level
+    def _multiply_impl(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         mul = lambda x, y: poly_mul_pointwise(x, y, self.ctx)
         d1 = poly_add(mul(a.c[0], b.c[1]), mul(a.c[1], b.c[0]), self.ctx)
         return Ciphertext([mul(a.c[0], b.c[0]), d1, mul(a.c[1], b.c[1])], 1.0,
                           a.correction * b.correction % self.t)
+
+    def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        """Tensor product (a0, a1)×(b0, b1) -> (d0, d1, d2); corrections multiply."""
+        assert a.size == 2 and b.size == 2 and a.level == b.level
+        return self._jit("multiply", self._multiply_impl)(a, b)
+
+    def multiply_relin(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        assert a.size == 2 and b.size == 2 and a.level == b.level
+        return self._jit(
+            "multiply_relin",
+            lambda x, y, k: self._relinearize_impl(self._multiply_impl(x, y), k))(a, b, self.rlk)
 
     def multiply_plain(self, ct: Ciphertext, pt: RnsPoly) -> Ciphertext:
         pt_ntt = pt if pt.is_ntt else poly_ntt(RnsPoly(pt.data[:ct.level + 1], False), self.ctx)
@@ -231,6 +268,9 @@ class BgvContext(BatchedContext):
                           ct.correction)
 
     def mod_switch_to_next(self, ct: Ciphertext) -> Ciphertext:
+        return self._jit("mod_switch", self._mod_switch_impl)(ct)
+
+    def _mod_switch_impl(self, ct: Ciphertext) -> Ciphertext:
         """Divide by the top prime q_k keeping the message mod t: c' = (c −
         δ)/q_k with δ ≡ c (mod q_k), δ ≡ 0 (mod t), δ centered: the t-mode of
         `drop_limb`, every component in one batched call (the reference's

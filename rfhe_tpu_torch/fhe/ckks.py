@@ -2,10 +2,14 @@
 
 Counterpart of `rfhe_tpu/fhe/ckks.py`.  Encode/decode run on the host in
 float64 (copies of the reference's numpy functions); everything after
-encode is exact integer RNS arithmetic on the context's device.  PyTorch
-runs eagerly, so the evaluator calls its implementations directly where the
-reference wraps them in cached jits.  With the same parameters and seed the
-keys and every ciphertext array equal the reference's
+encode is exact integer RNS arithmetic on the context's device.  As in the
+reference, encrypt, decrypt and every public evaluator op run their
+implementations (`_*_impl`) through one cached program per (op, signature)
+(`_jit`, with the reference's keys): on a card a CUDA graph captured once
+and replayed (`utils/jitcache.py`), on the CPU the implementation itself.
+The host's draws (u, e0, e1, the seeded a) are made outside the program and
+passed in; the keys are read where they lie.  With the same parameters and
+seed the keys and every ciphertext array equal the reference's
 (tests/test_torch_ckks.py).
 """
 from __future__ import annotations
@@ -21,6 +25,7 @@ from ..device import to_numpy_u32, to_torch
 from ..numth import crt_constants
 from ..ops.crt64 import Crt64Plan, crt_to_words, words_to_signed
 from ..ops.modarith import add_mod, mont_mul, sub_mod
+from ..utils.jitcache import GraphPool, HoistedJit, hoisted_jit
 from .keys import (
     KeyGen, KeySwitchKey, PublicKey, SecretKey, _digit_groups,
     _rns_from_signed, _sample_gaussian, _sample_ternary, keyswitch,
@@ -89,38 +94,44 @@ def rns_to_signed(data: np.ndarray, moduli) -> np.ndarray:
 # context & ciphertext
 # ---------------------------------------------------------------------------
 
-def encrypt_public(ctx: RnsContext, pk: PublicKey, rng: np.random.Generator,
-                   m: torch.Tensor, sigma: float, noise_factor: int = 1
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(c0, c1) = (pk.b·u + NTT(e0 + m), pk.a·u + NTT(e1)) at the level of
-    the coefficient-domain m (level+1, N), drawing u, e0, e1 from `rng`
-    in the reference's order, each gaussian scaled by `noise_factor` (t
-    in BGV).  The encryption of every scheme's context."""
-    lvl = m.shape[0] - 1
+def draw_public(ctx: RnsContext, rng: np.random.Generator, level: int, sigma: float,
+                noise_factor: int = 1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(u, e0, e1) of a public-key encryption at `level`, drawn from `rng` in
+    the reference's order, each gaussian scaled by `noise_factor` (t in BGV),
+    as residues on the context's device."""
     n = ctx.n
-    moduli = ctx.moduli[:lvl + 1]
+    moduli = ctx.moduli[:level + 1]
     u = _rns_from_signed(_sample_ternary(rng, n), moduli)
     e0, e1 = (_rns_from_signed(noise_factor * _sample_gaussian(rng, n, sigma), moduli)
               for _ in range(2))
+    return tuple(to_torch(v, ctx.device) for v in (u, e0, e1))
+
+
+def encrypt_with(ctx: RnsContext, m: torch.Tensor, u: torch.Tensor, e0: torch.Tensor,
+                 e1: torch.Tensor, pk: PublicKey) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(c0, c1) = (pk.b·u + NTT(e0 + m), pk.a·u + NTT(e1)) at the level of
+    the coefficient-domain m (level+1, N): the encryption of every scheme's
+    context, given its draws (`draw_public`)."""
+    lvl = m.shape[0] - 1
     plan = ctx.plan_at(lvl)
     q, rinv = plan.qb(1), plan.rinvb(1)
-    u, e0, e1 = (to_torch(v, ctx.device) for v in (u, e0, e1))
     u_ntt, m0_ntt, m1_ntt = plan.fwd(torch.stack((u, add_mod(e0, m, q), e1)))
     c0 = add_mod(mont_mul(pk.b[:lvl + 1], u_ntt, q, rinv), m0_ntt, q)
     c1 = add_mod(mont_mul(pk.a[:lvl + 1], u_ntt, q, rinv), m1_ntt, q)
     return c0, c1
 
 
-def dot_secret(ctx: RnsContext, sk: SecretKey, ct: "Ciphertext") -> torch.Tensor:
-    """c0 + c1·s (+ c2·s²), NTT domain, at the ciphertext's level."""
-    lvl = ct.level
+def dot_secret(ctx: RnsContext, s_ntt: torch.Tensor, comps: Sequence[torch.Tensor]
+               ) -> torch.Tensor:
+    """c0 + c1·s (+ c2·s²), NTT domain, at the level of the components."""
+    lvl = comps[0].shape[0] - 1
     plan = ctx.plan_at(lvl)
     q, rinv = plan.qb(1), plan.rinvb(1)
-    s = sk.s_ntt[:lvl + 1]
-    acc = ct.c[0].data
+    s = s_ntt[:lvl + 1]
+    acc = comps[0]
     spow = s
-    for comp in ct.c[1:]:
-        acc = add_mod(acc, mont_mul(comp.data, spow, q, rinv), q)
+    for comp in comps[1:]:
+        acc = add_mod(acc, mont_mul(comp, spow, q, rinv), q)
         spow = mont_mul(spow, s, q, rinv)
     return acc
 
@@ -132,6 +143,14 @@ class Ciphertext:
     # BGV only: the factor decryption multiplies by (mod t); a modulus
     # switch by q_k scales the message by q_k^{-1} mod t
     correction: int = 1
+
+    def tree_flatten(self):
+        # scale and correction are static metadata of the op sequence
+        return (self.c,), (self.scale, self.correction)
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return cls(c=list(children[0]), scale=aux[0], correction=aux[1])
 
     @property
     def level(self) -> int:
@@ -185,6 +204,8 @@ class CkksContext:
         self._rlk: Optional[KeySwitchKey] = None
         self._galois: Dict[int, KeySwitchKey] = {}
         self._crt64_plans: Dict[int, Crt64Plan] = {}
+        self._jits: Dict = {}
+        self._graphs = GraphPool()
 
     # -- keys ---------------------------------------------------------------
     @property
@@ -223,7 +244,7 @@ class CkksContext:
         ternary `sk_s_coeff`, laid out as the reference's key objects hold
         them (`rfhe_tpu/fhe/keys.py:36-60`).  Keyswitch keys have shape
         (n_groups, L + n_special, N) for this context's dnum; another shape
-        raises."""
+        raises.  The cached programs read the old keys, so they are dropped."""
         dev = self.device
         groups = _digit_groups(self.L, self.L if self.dnum is None else self.dnum)
         want = (len(groups), self.ctx.L, self.params.n)
@@ -245,6 +266,7 @@ class CkksContext:
                             s_coeff=np.asarray(state["sk_s_coeff"], dtype=np.int64))
         self.pk = PublicKey(b=to_torch(state["pk_b"], dev), a=to_torch(state["pk_a"], dev))
         self._galois, self._rlk = galois, rlk
+        self._jits, self._graphs = {}, GraphPool()
 
     def rotation_galois_element(self, r: int) -> int:
         n = self.params.n
@@ -262,7 +284,10 @@ class CkksContext:
     def encrypt(self, pt: RnsPoly, scale: float) -> Ciphertext:
         """Public-key encryption; draws u, e0, e1 from the context's rng in
         the reference's order."""
-        c0, c1 = encrypt_public(self.ctx, self.pk, self.rng, pt.data, self.params.sigma)
+        lvl = pt.level
+        u, e0, e1 = draw_public(self.ctx, self.rng, lvl, self.params.sigma)
+        c0, c1 = self._jit(("encrypt", lvl), lambda m, u, e0, e1, pk: encrypt_with(
+            self.ctx, m, u, e0, e1, pk))(pt.data, u, e0, e1, self.pk)
         return Ciphertext([RnsPoly(c0, True), RnsPoly(c1, True)], scale)
 
     def encrypt_seeded(self, pt: RnsPoly, scale: float, seed: int) -> Ciphertext:
@@ -275,24 +300,39 @@ class CkksContext:
         lvl = pt.level
         moduli = self.params.moduli[:lvl + 1]
         a = to_torch(sample_uniform_a(seed, (lvl + 1, self.params.n), moduli), self.device)
-        e = _rns_from_signed(_sample_gaussian(self.rng, self.params.n, self.params.sigma), moduli)
+        e = to_torch(_rns_from_signed(_sample_gaussian(self.rng, self.params.n,
+                                                       self.params.sigma), moduli), self.device)
         plan = self.ctx.plan_at(lvl)
-        q, rinv = plan.qb(1), plan.rinvb(1)
-        m_ntt = plan.fwd(add_mod(to_torch(e, self.device), pt.data, q))
-        c0 = sub_mod(m_ntt, mont_mul(a, self.sk.s_ntt[:lvl + 1], q, rinv), q)
+
+        def enc(m, a, e, sk):
+            q, rinv = plan.qb(1), plan.rinvb(1)
+            m_ntt = plan.fwd(add_mod(e, m, q))
+            return sub_mod(m_ntt, mont_mul(a, sk.s_ntt[:lvl + 1], q, rinv), q)
+
+        c0 = self._jit(("encrypt_seeded", lvl), enc)(pt.data, a, e, self.sk)
         return Ciphertext([RnsPoly(c0, True), RnsPoly(a, True)], scale)
 
+    def _decrypt_impl(self, comps: List[torch.Tensor], sk: SecretKey) -> torch.Tensor:
+        """[c(s)]_Q, coefficient domain, at the level of the components."""
+        plan = self.ctx.plan_at(comps[0].shape[0] - 1)
+        return plan.inv(dot_secret(self.ctx, sk.s_ntt, comps))
+
     def decrypt(self, ct: Ciphertext) -> RnsPoly:
-        return RnsPoly(self.ctx.plan_at(ct.level).inv(dot_secret(self.ctx, self.sk, ct)), False)
+        out = self._jit(("decrypt", ct.size, ct.level), self._decrypt_impl)(
+            [c.data for c in ct.c], self.sk)
+        return RnsPoly(out, False)
+
+    def _crt64_plan(self, lvl: int) -> Crt64Plan:
+        if lvl not in self._crt64_plans:
+            self._crt64_plans[lvl] = Crt64Plan.make(self.params.moduli[:lvl + 1], self.device)
+        return self._crt64_plans[lvl]
 
     def decrypt_words(self, ct: Ciphertext) -> Tuple[torch.Tensor, torch.Tensor]:
         """Decrypt and CRT-reconstruct on the device: the plaintext
         coefficients as (hi, lo) 32-bit words of their 64-bit value."""
-        lvl = ct.level
-        if lvl not in self._crt64_plans:
-            self._crt64_plans[lvl] = Crt64Plan.make(self.params.moduli[:lvl + 1],
-                                                    self.device)
-        return crt_to_words(self.decrypt(ct).data, self._crt64_plans[lvl])
+        cplan = self._crt64_plan(ct.level)
+        return self._jit(("decrypt64", ct.size, ct.level), lambda cs, sk: crt_to_words(
+            self._decrypt_impl(cs, sk), cplan))([c.data for c in ct.c], self.sk)
 
     def decrypt_decode(self, ct: Ciphertext, exact: bool = False) -> np.ndarray:
         """Decrypt + decode.  The default reconstructs the small centered
@@ -306,37 +346,28 @@ class CkksContext:
             signed = words_to_signed(hi.cpu().numpy(), lo.cpu().numpy())
         return decode(signed.astype(np.float64), self.params.n, ct.scale)
 
-    # -- evaluator ----------------------------------------------------------
-    def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        assert abs(a.scale - b.scale) / a.scale < 1e-9 and a.level == b.level
+    # -- evaluator: the implementations ------------------------------------
+    def _add_impl(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         return Ciphertext([poly_add(x, y, self.ctx) for x, y in zip(a.c, b.c)], a.scale)
 
-    def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        assert a.level == b.level
+    def _sub_impl(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         return Ciphertext([poly_sub(x, y, self.ctx) for x, y in zip(a.c, b.c)], a.scale)
 
-    def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        """Tensor product: (a0,a1)x(b0,b1) -> (d0, d1, d2), scales multiply."""
-        assert a.size == 2 and b.size == 2 and a.level == b.level
+    def _multiply_impl(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         mul = lambda x, y: poly_mul_pointwise(x, y, self.ctx)
         d0 = mul(a.c[0], b.c[0])
         d1 = poly_add(mul(a.c[0], b.c[1]), mul(a.c[1], b.c[0]), self.ctx)
         d2 = mul(a.c[1], b.c[1])
         return Ciphertext([d0, d1, d2], a.scale * b.scale)
 
-    def relinearize(self, ct: Ciphertext) -> Ciphertext:
-        assert ct.size == 3
+    def _relinearize_impl(self, ct: Ciphertext, rlk: KeySwitchKey) -> Ciphertext:
         d2_coeff = poly_intt(ct.c[2], self.ctx)
-        k0, k1 = keyswitch(d2_coeff.data, self.rlk, ct.level, self.ctx, self.L,
-                           dnum=self.dnum)
+        k0, k1 = keyswitch(d2_coeff.data, rlk, ct.level, self.ctx, self.L, dnum=self.dnum)
         c0 = poly_add(ct.c[0], RnsPoly(k0, True), self.ctx)
         c1 = poly_add(ct.c[1], RnsPoly(k1, True), self.ctx)
         return Ciphertext([c0, c1], ct.scale)
 
-    def multiply_relin(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        return self.relinearize(self.multiply(a, b))
-
-    def rescale(self, ct: Ciphertext) -> Ciphertext:
+    def _rescale_impl(self, ct: Ciphertext) -> Ciphertext:
         """Drop alpha top limbs (alpha=2 for a composite scale)."""
         cs, scale = ct.c, ct.scale
         for _ in range(self.params.alpha):
@@ -345,23 +376,64 @@ class CkksContext:
             scale /= q_top
         return Ciphertext(cs, scale)
 
-    def multiply_plain(self, ct: Ciphertext, pt: RnsPoly,
-                       pt_scale: float) -> Ciphertext:
+    def _multiply_plain_impl(self, ct: Ciphertext, pt: RnsPoly,
+                             pt_scale: float) -> Ciphertext:
         pt_ntt = pt if pt.is_ntt else poly_ntt(pt, self.ctx)
         return Ciphertext([poly_mul_pointwise(c, pt_ntt, self.ctx) for c in ct.c],
                           ct.scale * pt_scale)
+
+    def _apply_galois_impl(self, ct: Ciphertext, ksk: KeySwitchKey, g: int) -> Ciphertext:
+        c0g = poly_automorphism(ct.c[0], g, self.ctx)
+        c1g = poly_automorphism(ct.c[1], g, self.ctx)
+        c1_coeff = poly_intt(c1g, self.ctx)
+        k0, k1 = keyswitch(c1_coeff.data, ksk, ct.level, self.ctx, self.L, dnum=self.dnum)
+        c0 = poly_add(c0g, RnsPoly(k0, True), self.ctx)
+        return Ciphertext([c0, RnsPoly(k1, True)], ct.scale)
+
+    # -- evaluator: one cached program per (op, signature) ------------------
+    def _jit(self, name, fn) -> HoistedJit:
+        if name not in self._jits:
+            self._jits[name] = hoisted_jit(fn, self._graphs, name)
+        return self._jits[name]
+
+    def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        assert abs(a.scale - b.scale) / a.scale < 1e-9 and a.level == b.level
+        return self._jit("add", self._add_impl)(a, b)
+
+    def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        assert a.level == b.level
+        return self._jit("sub", self._sub_impl)(a, b)
+
+    def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        """Tensor product: (a0,a1)x(b0,b1) -> (d0, d1, d2), scales multiply."""
+        assert a.size == 2 and b.size == 2 and a.level == b.level
+        return self._jit("multiply", self._multiply_impl)(a, b)
+
+    def relinearize(self, ct: Ciphertext) -> Ciphertext:
+        assert ct.size == 3
+        return self._jit("relinearize", self._relinearize_impl)(ct, self.rlk)
+
+    def multiply_relin(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        assert a.size == 2 and b.size == 2 and a.level == b.level
+        return self._jit(
+            "multiply_relin",
+            lambda x, y, k: self._relinearize_impl(self._multiply_impl(x, y), k))(a, b, self.rlk)
+
+    def rescale(self, ct: Ciphertext) -> Ciphertext:
+        return self._jit("rescale", self._rescale_impl)(ct)
+
+    def multiply_plain(self, ct: Ciphertext, pt: RnsPoly,
+                       pt_scale: float) -> Ciphertext:
+        out = self._jit("multiply_plain",
+                        lambda c, p: self._multiply_plain_impl(c, p, 1.0))(ct, pt)
+        return Ciphertext(out.c, ct.scale * pt_scale, out.correction)
 
     def apply_galois(self, ct: Ciphertext, g: int) -> Ciphertext:
         """σ_g then keyswitch σ_g(s) -> s."""
         assert ct.size == 2
         ksk = self.galois_key(g)
-        c0g = poly_automorphism(ct.c[0], g, self.ctx)
-        c1g = poly_automorphism(ct.c[1], g, self.ctx)
-        c1_coeff = poly_intt(c1g, self.ctx)
-        k0, k1 = keyswitch(c1_coeff.data, ksk, ct.level, self.ctx, self.L,
-                           dnum=self.dnum)
-        c0 = poly_add(c0g, RnsPoly(k0, True), self.ctx)
-        return Ciphertext([c0, RnsPoly(k1, True)], ct.scale)
+        return self._jit(("galois", g),
+                         lambda c, k: self._apply_galois_impl(c, k, g))(ct, ksk)
 
     def rotate(self, ct: Ciphertext, r: int) -> Ciphertext:
         """Rotate slots by r positions."""

@@ -8,7 +8,8 @@ primes with product P after the ciphertext primes.  Digit j is [c]_{Q_j}
                                                           0 elsewhere.
 dnum=None is per-limb digits (α = 1, one special prime).  Every random draw
 is made on the host from the caller's np.random.Generator in the reference's
-order, so keys come out identical.
+order, so keys come out identical.  A cached program reads the keys where
+they lie (`utils.jitcache.by_reference`): they are never copied per call.
 """
 from __future__ import annotations
 
@@ -23,21 +24,25 @@ import torch
 from ..device import to_torch
 from ..numth import mod_inv, shoup_precompute
 from ..ops.modarith import add_mod, mont_mul, mul_mod, mul_mod_shoup, sub_mod
+from ..utils.jitcache import by_reference
 from .rns import RnsContext, drop_limb
 
 
+@by_reference
 @dataclass
 class SecretKey:
     s_ntt: torch.Tensor      # (L_full, N) NTT/Montgomery domain incl. special
     s_coeff: np.ndarray      # (N,) ternary in {-1, 0, 1}, host
 
 
+@by_reference
 @dataclass
 class PublicKey:
     b: torch.Tensor          # (L_ct, N) NTT domain (ciphertext primes only)
     a: torch.Tensor
 
 
+@by_reference
 @dataclass
 class KeySwitchKey:
     """b, a: (n_digits, L_full, N) NTT domain over the ciphertext primes
@@ -212,6 +217,19 @@ def _single_moduli(moduli: tuple, limbs: tuple, lim: tuple) -> np.ndarray:
                      for l in limbs], dtype=np.int64)
 
 
+def digit_basis(level: int, ctx: RnsContext, n_ct_limbs: int, dnum: Optional[int] = None,
+                targets: Optional[Sequence[int]] = None) -> tuple:
+    """The layout `compute_digits` decomposes into: ([(group index, its active
+    limbs)], the used group indices, the lim basis: the target limbs, then
+    the special limbs)."""
+    L = n_ct_limbs
+    active = level + 1
+    lim = (list(range(active)) if targets is None else list(targets)) + list(range(L, len(ctx.moduli)))
+    groups = [(gi, G) for gi, grp in enumerate(_digit_groups(L, L if dnum is None else dnum))
+              if (G := [l for l in grp if l < active])]
+    return groups, [gi for gi, _ in groups], lim
+
+
 def compute_digits(d_coeff: torch.Tensor, level: int, ctx: RnsContext,
                    n_ct_limbs: int, dnum: Optional[int] = None,
                    with_ecc: bool = False,
@@ -231,15 +249,9 @@ def compute_digits(d_coeff: torch.Tensor, level: int, ctx: RnsContext,
     (all active limbs by default; the special limbs always follow): every
     digit still reads all of d, and each target limb's row is the one the
     whole basis gives it."""
-    L = n_ct_limbs
     active = level + 1
-    if dnum is None:
-        dnum = L
-    lim = (list(range(active)) if targets is None else list(targets)) + list(range(L, len(ctx.moduli)))
+    groups, used, lim = digit_basis(level, ctx, n_ct_limbs, dnum, targets)
     q_lim = ctx.plan.tables.q[ctx.index(lim)]
-    groups = [(gi, G) for gi, grp in enumerate(_digit_groups(L, dnum))
-              if (G := [l for l in grp if l < active])]
-    used = [gi for gi, _ in groups]
     single_q = lambda limbs: ctx.cached(
         ("single", tuple(limbs), tuple(lim)),
         lambda: to_torch(_single_moduli(tuple(ctx.moduli), tuple(limbs), tuple(lim)), ctx.device))

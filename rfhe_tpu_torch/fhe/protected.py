@@ -30,9 +30,13 @@ rotate (rotate_rows in BGV) / multiply_relin return the plain evaluator's
 arrays bit for bit and a dict of per-phase bool flags, keyed as the
 reference's (`md` for the last special prime's mod-down, `md1`, `md2`, …
 for the others).  A `Fault` flips one bit of a named intermediate; the flip
-campaign (`faults/evaluator_campaign.py`) sweeps them.  PyTorch runs
-eagerly, so the reference's jit cache has no counterpart; the probe cache
-does.
+campaign (`faults/evaluator_campaign.py`) sweeps them.  As in the
+reference, each (op, level, fault stage) is one cached program (`_jit`, keys
+("pgalois", g, level, stage) and ("pmulrelin", level, stage); a CUDA graph
+on a card, `utils/jitcache.py`) whose fault location (limb, index, bit)
+arrives as 0-d int64 tensors, so one program serves every trial of a stage.
+The flags stay tensors until the caller reads them.  The probes are built
+before the program runs and read where they lie.
 
 Faulted words may lie at or above q.  Every consumer of a faulted word here
 reduces it exactly mod q (the NTT kernels on entry, the dots' products, the
@@ -53,6 +57,7 @@ from ..ops.modarith import add_mod, mont_mul, mul_mod_shoup, sub_mod
 from ..ops.modring import sum_mod
 from ..protect.checks import mont_mul_checked
 from ..protect.ntt_guard import NttGuard
+from ..utils.jitcache import HoistedJit, by_reference, hoisted_jit
 from .ckks import Ciphertext, CkksContext
 from .keys import _digit_groups, _sum_digits, compute_digits
 from .rns import RnsPoly, bgv_lift_residue, bgv_lift_shift, lift_to_limbs, limb_plan
@@ -93,6 +98,7 @@ def all_ok(flags: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.stack([torch.all(v) for v in flags.values()]).all()
 
 
+@by_reference
 @dataclass(frozen=True)
 class KsProbe:
     """The keyswitch-core projection of one (key, level): the transposed
@@ -118,10 +124,26 @@ class ProtectedCkks:
         self.ckks = ckks
         self.guard = NttGuard.make(ckks.ctx.plan)
         self._probes: Dict = {}
+        self._jits: Dict = {}
         self.checks = _check_set(checks, self.ALL_CHECKS)
 
     def _on(self, name: str) -> bool:
         return name in self.checks
+
+    def _jit(self, name, fn) -> HoistedJit:
+        """One cached program per (op, level, stage), in the graph pool of
+        the evaluator's context."""
+        if name not in self._jits:
+            self._jits[name] = hoisted_jit(fn, self.ckks._graphs, name)
+        return self._jits[name]
+
+    def _location(self, fault: Fault) -> tuple:
+        """The fault's (limb, idx, bit) as 0-d int64 tensors on the device:
+        arguments of the stage's program, never baked into it."""
+        dev = self.ckks.ctx.device
+        return tuple(v if isinstance(v, torch.Tensor) else
+                     torch.tensor(int(v), dtype=torch.int64, device=dev)
+                     for v in (fault.limb, fault.idx, fault.bit))
 
     # -- probes (once per key and level, cached) ---------------------------
     def _active_basis(self, level: int):
@@ -321,8 +343,16 @@ class ProtectedCkks:
         assert ct.size == 2
         ksk = self.ckks.galois_key(g)
         lvl = ct.level
-        return self._galois_impl(ct, ksk, g, lvl, fault, self._ks_probe(ksk, lvl, salt=g),
-                                 self._perm_probe(g, lvl + 1))
+        probe = self._ks_probe(ksk, lvl, salt=g)         # built before the program
+        pp = self._perm_probe(g, lvl + 1)
+        key = ("pgalois", g, lvl, fault.stage if fault else None)
+        if fault is None:
+            return self._jit(key, lambda c, k, pr: self._galois_impl(
+                c, k, g, lvl, None, pr, pp))(ct, ksk, probe)
+        stage = fault.stage
+        return self._jit(key, lambda c, k, pr, li, ix, bi: self._galois_impl(
+            c, k, g, lvl, Fault(stage, li, ix, bi), pr, pp))(ct, ksk, probe,
+                                                              *self._location(fault))
 
     def rotate(self, ct: Ciphertext, r: int,
                fault: Optional[Fault] = None) -> Tuple[Ciphertext, Dict]:
@@ -360,10 +390,19 @@ class ProtectedCkks:
         assert a.size == 2 and b.size == 2 and a.level == b.level
         rlk = self.ckks.rlk
         lvl = a.level
-        corr = a.correction * b.correction % self._ks_t if self._ks_t else 1
-        return self._mul_relin_impl([c.data for c in a.c], [c.data for c in b.c], rlk.b, rlk.a,
-                                    self._ks_probe(rlk, lvl, salt=-1), lvl,
-                                    a.scale * b.scale, fault, corr)
+        probe = self._ks_probe(rlk, lvl, salt=-1)
+        key = ("pmulrelin", lvl, fault.stage if fault else None)
+
+        def run(a, b, k, pr, fault):
+            corr = a.correction * b.correction % self._ks_t if self._ks_t else 1
+            return self._mul_relin_impl([c.data for c in a.c], [c.data for c in b.c], k.b, k.a,
+                                        pr, lvl, a.scale * b.scale, fault, corr)
+
+        if fault is None:
+            return self._jit(key, lambda a, b, k, pr: run(a, b, k, pr, None))(a, b, rlk, probe)
+        stage = fault.stage
+        return self._jit(key, lambda a, b, k, pr, li, ix, bi: run(
+            a, b, k, pr, Fault(stage, li, ix, bi)))(a, b, rlk, probe, *self._location(fault))
 
 
 class ProtectedBgv(ProtectedCkks):

@@ -97,6 +97,13 @@ class RnsPoly:
     data: torch.Tensor     # (level+1, N) int64
     is_ntt: bool           # True: NTT/Montgomery domain, slot order nu
 
+    def tree_flatten(self):
+        return (self.data,), (self.is_ntt,)
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return cls(data=children[0], is_ntt=aux[0])
+
     @property
     def level(self) -> int:
         return self.data.shape[0] - 1

@@ -39,7 +39,12 @@ output (and the intermediate), launch on the current stream and count one
 launch of the form's kernel in `KERNELS.launches` (and, by the kernels that
 ran, in `KERNELS.by_kernels`; by shape in `KERNELS.by_shape`) and each
 `__global__` launch in `KERNELS.passes`.  Anything the kernels do not take raises; there
-is no fallback.
+is no fallback.  A launch inside a CUDA graph capture runs nothing: the capture
+takes its counts back and every replay adds them (`KERNELS.snapshot`,
+`since`, `add`; utils/jitcache.py), so the counters count transforms that
+ran.  This module also stands where the reference's `utils/compilecache.py`
+does: the kernel library is built once per checkout and source, into
+`build/rfhe_tpu_torch/`.
 """
 from __future__ import annotations
 
@@ -264,6 +269,31 @@ class NttKernels:
         self.passes = dict.fromkeys(FORMS, 0)
         self.by_kernels = dict.fromkeys(KERNEL_SETS, 0)
         self.by_shape = {}
+
+    # A graph capture runs no kernel but makes the counts of its launches; it
+    # takes them back, and every replay adds them (utils/jitcache.py).
+    _COUNTERS = ("launches", "passes", "by_kernels", "by_shape")
+
+    def snapshot(self) -> dict:
+        return {name: dict(getattr(self, name)) for name in self._COUNTERS}
+
+    def restore(self, snap: dict) -> None:
+        for name in self._COUNTERS:
+            setattr(self, name, dict(snap[name]))
+
+    def since(self, snap: dict) -> dict:
+        """The counts made since `snap`, nonzero ones only."""
+        out = {}
+        for name in self._COUNTERS:
+            now, then = getattr(self, name), snap[name]
+            out[name] = {k: v - then.get(k, 0) for k, v in now.items() if v != then.get(k, 0)}
+        return out
+
+    def add(self, delta: dict) -> None:
+        for name, counts in delta.items():
+            mine = getattr(self, name)
+            for k, v in counts.items():
+                mine[k] = mine.get(k, 0) + v
 
     @property
     def fwd_launches(self) -> int:

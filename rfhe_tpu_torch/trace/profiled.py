@@ -22,6 +22,12 @@ limb's inverse NTT, `MD_BASECONV` its centred lift to the kept limbs,
 q_src⁻¹): bench/phase_profile.py reads each phase's device time from one
 profile as the sum of the kernels launched inside its range.  The Galois key
 is drawn before the first range opens, so key generation lands in no phase.
+
+As the reference runs one jit program per phase (`rfhe_tpu/trace/profiled.py`),
+each phase here, and each constituent of the mod-down, is one cached
+program (`_jit`; a CUDA graph on a card, `utils/jitcache.py`), replayed
+inside its range: the replay's kernels are launched by one graph launch
+within that range, and its input copies and output clones with them.
 """
 from __future__ import annotations
 
@@ -31,10 +37,11 @@ from typing import Dict, List, Optional
 import torch
 
 from ..fhe.ckks import Ciphertext, CkksContext
-from ..fhe.keys import _sum_digits, compute_digits
+from ..fhe.keys import _sum_digits, compute_digits, digit_basis
 from ..fhe.rns import RnsPoly, lift_to_limbs, limb_plan
 from ..ops.modarith import add_mod, mont_mul, mul_mod_shoup, sub_mod
 from ..ops.ntt_pease import negacyclic_intt, negacyclic_ntt
+from ..utils.jitcache import HoistedJit, hoisted_jit
 from .markers import TraceCollector, synchronizer
 
 PHASES = ("PERMUTE", "INTT", "BASECONV", "NTT", "MULTEVK", "MODDOWN")
@@ -55,23 +62,38 @@ class ProfiledRotation:
     def __init__(self, ckks: CkksContext):
         self.ckks = ckks
         self.last_collector: Optional[TraceCollector] = None
+        self._jits: Dict = {}
 
-    def _drop_limb(self, data: torch.Tensor, src_k: int, keep: List[int], sync) -> torch.Tensor:
+    def _jit(self, name, fn) -> HoistedJit:
+        """One cached program per phase (and level), in the graph pool of
+        the context."""
+        if name not in self._jits:
+            self._jits[name] = hoisted_jit(fn, self.ckks._graphs, name)
+        return self._jits[name]
+
+    def _drop_limb(self, data: torch.Tensor, src_k: int, keep: List[int], level: int,
+                   sync) -> torch.Tensor:
         """`fhe.rns.drop_limb` (CKKS) in its four constituents."""
         ctx = self.ckks.ctx
         nk = len(keep)
+        key = (level, src_k)
         with _part("MD_INTT", sync):
-            src_row = negacyclic_intt(data[..., nk:nk + 1, :].contiguous(), limb_plan(ctx, src_k))
+            src_row = self._jit(("md_intt",) + key, lambda x: negacyclic_intt(
+                x[..., nk:nk + 1, :].contiguous(), limb_plan(ctx, src_k)))(data)
         with _part("MD_BASECONV", sync):
-            delta = lift_to_limbs(src_row[..., 0, :], src_k, keep, ctx, centered=True)
+            delta = self._jit(("md_baseconv",) + key, lambda r: lift_to_limbs(
+                r[..., 0, :], src_k, keep, ctx, centered=True))(src_row)
         with _part("MD_NTT", sync):
-            delta_ntt = negacyclic_ntt(delta, ctx.plan.take(keep))
+            delta_ntt = self._jit(("md_ntt",) + key, lambda x: negacyclic_ntt(
+                x, ctx.plan.take(keep)))(delta)
         with _part("MD_MODMUL", sync):
-            keep_idx = ctx.index(keep)
-            q_lo = ctx.plan.tables.q[keep_idx][:, None]
-            num = sub_mod(data[..., :nk, :], delta_ntt, q_lo)
-            return mul_mod_shoup(num, ctx.qk_inv[src_k, keep_idx][:, None],
-                                 ctx.qk_inv_shoup[src_k, keep_idx][:, None], q_lo)
+            def modmul(x, dn):
+                keep_idx = ctx.index(keep)
+                q_lo = ctx.plan.tables.q[keep_idx][:, None]
+                num = sub_mod(x[..., :nk, :], dn, q_lo)
+                return mul_mod_shoup(num, ctx.qk_inv[src_k, keep_idx][:, None],
+                                     ctx.qk_inv_shoup[src_k, keep_idx][:, None], q_lo)
+            return self._jit(("md_modmul",) + key, modmul)(data, delta_ntt)
 
     def rotate(self, ct: Ciphertext, r: int,
                collector: Optional[TraceCollector] = None) -> Ciphertext:
@@ -85,29 +107,37 @@ class ProfiledRotation:
         level = ct.level
         active = level + 1
         sp_idx = list(range(ckks.L, len(ctx.moduli)))
+        _, used, lim = digit_basis(level, ctx, ckks.L, ckks.dnum)
+        sub_plan = ctx.plan.take(lim)
         with col.scope("ROTATE"):
             with col.kernel("PERMUTE", sync=dev):
                 perm = ctx.galois_perm_t(g)
-                c0g = ct.c[0].data.index_select(-1, perm)
-                c1g = ct.c[1].data.index_select(-1, perm)
+                c0g, c1g = self._jit(("perm", g), lambda c0, c1: (
+                    c0.index_select(-1, perm), c1.index_select(-1, perm)))(
+                        ct.c[0].data, ct.c[1].data)
             with col.kernel("INTT", sync=dev):
-                d = negacyclic_intt(c1g, ctx.plan_at(level))
+                d = self._jit(("intt", level), lambda x: negacyclic_intt(
+                    x, ctx.plan_at(level)))(c1g)
             with col.kernel("BASECONV", sync=dev):
-                dig, used, lim = compute_digits(d, level, ctx, ckks.L, ckks.dnum)
+                dig = self._jit(("ext", level), lambda x: compute_digits(
+                    x, level, ctx, ckks.L, ckks.dnum)[0])(d)
             with col.kernel("NTT", sync=dev):
-                sub_plan = ctx.plan.take(lim)
-                dig_ntt = negacyclic_ntt(dig, sub_plan)
+                dig_ntt = self._jit(("ntt", level), lambda x: negacyclic_ntt(x, sub_plan))(dig)
             with col.kernel("MULTEVK", sync=dev):
-                lim_idx, used_idx = ctx.index(lim), ctx.index(used)
-                q, rinv = sub_plan.qb(1), sub_plan.rinvb(1)
-                acc = torch.stack([
-                    _sum_digits(mont_mul(dig_ntt, k.index_select(0, used_idx).index_select(1, lim_idx),
-                                         q, rinv), q)
-                    for k in (ksk.b, ksk.a)])
+                def mac(dn, k):
+                    lim_idx, used_idx = ctx.index(lim), ctx.index(used)
+                    q, rinv = sub_plan.qb(1), sub_plan.rinvb(1)
+                    return torch.stack([
+                        _sum_digits(mont_mul(dn, kk.index_select(0, used_idx)
+                                             .index_select(1, lim_idx), q, rinv), q)
+                        for kk in (k.b, k.a)])
+                acc = self._jit(("mac", level), mac)(dig_ntt, ksk)
             with col.kernel("MODDOWN", sync=dev):
                 for k_i in range(len(sp_idx) - 1, -1, -1):
-                    acc = self._drop_limb(acc, sp_idx[k_i], list(range(active)) + sp_idx[:k_i], sync)
-                c0 = add_mod(c0g, acc[0], ctx.plan_at(level).qb(1))
+                    acc = self._drop_limb(acc, sp_idx[k_i], list(range(active)) + sp_idx[:k_i],
+                                          level, sync)
+                c0 = self._jit(("moddown", level), lambda x, a: add_mod(
+                    x, a, ctx.plan_at(level).qb(1)))(c0g, acc[0])
         self.last_collector = col
         return Ciphertext([RnsPoly(c0, True), RnsPoly(acc[1], True)], ct.scale)
 

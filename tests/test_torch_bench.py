@@ -171,6 +171,19 @@ def test_attribute_sums_kernels_by_range():
         phase_profile.attribute(events + [_Ev("k4", True, 99.5, 99.7)], 1)
 
 
+def test_attribute_places_graph_kernels_at_their_launch():
+    """A replayed graph's kernels share the graph launch's correlation id and
+    count in the phase whose range holds that launch, wherever the card ran
+    them; the graph's input copies and output clones count in no phase."""
+    events = [_Ev("ROTATE", False, 0, 100), _Ev("PERMUTE", False, 1, 10),
+              _Ev("MODDOWN", False, 10, 99), _Ev("cudaGraphLaunch", False, 2, 3, id=9),
+              _Ev("k1", True, 150, 154, id=9), _Ev("k2", True, 154, 155, id=9),
+              _Ev("cudaMemcpyAsync", False, 4, 5, id=10),
+              _Ev("Memcpy DtoD (Device -> Device)", True, 140, 141, id=10)]
+    out = phase_profile.attribute(events, 1)
+    assert out["PERMUTE"] == 5 and out["ROTATE"] == 5 and out["MODDOWN"] == 0
+
+
 def test_device_records_count_lost_launches():
     """A launch inside the measured range whose correlation id has no
     device record is lost; the padding's records are dropped."""
@@ -253,14 +266,15 @@ def test_device_unresolved_mode():
     assert resolve_reading(zero, 20) == (None, False)
     assert seen == [20, 80, 320]                       # the reference's two x4 escalations
     assert resolve_reading(lambda reps: 0.0 if reps < 80 else 3.5, 20) == (3.5, True)
-    row = ops_devtime._row("add", (None, "device-unresolved", 4.0))
-    assert row == {"op": "add", "mode": "device-unresolved", "us": "", "launches": 4.0}
+    row = ops_devtime._row("add", (None, "device-unresolved", 4.0, 6.0))
+    assert row == {"op": "add", "mode": "device-unresolved", "us": "", "launches": 4.0,
+                   "kernels": 6.0}
     assert "device-unresolved" in MODES
 
 
 def test_cpu_timing_is_wall():
-    us, mode, launches = op_us(lambda: torch.ones(8) + 1, "cpu", reps=3)
-    assert mode == "wall" and launches is None and us > 0
+    us, mode, launches, kernels = op_us(lambda: torch.ones(8) + 1, "cpu", reps=3)
+    assert mode == "wall" and launches is None and kernels is None and us > 0
 
 
 REF_LINES = {

@@ -82,6 +82,33 @@ def test_keys_identical(pair):
     _same(rc.rlk.a, tc.rlk.a)
 
 
+def test_jits_keys_equal_the_reference(pair):
+    """After the same op sequence (`_drive`, then decrypt and decrypt_decode
+    on both) the port's cached programs carry the reference's `_jits` keys
+    (its programs, compiled here anyway, serve the tests below)."""
+    rc, tc, ref, port, _ = pair
+    for ctx, out in ((rc, ref), (tc, port)):
+        ctx.decrypt(out["encrypt"]), ctx.decrypt_decode(out["encrypt"])
+    assert set(tc._jits) == set(rc._jits) and len(tc._jits) == 11
+
+
+def test_load_keys_after_an_op(pair):
+    """A context of another seed rotates (its program reads its own keys),
+    loads the reference's keys and rotates again: the reference's arrays for
+    the same ciphertext."""
+    rc, _, ref, _, _ = pair
+    other = CkksContext(CkksParams.make(**PARAMS), special_bits=31, seed=4, device="cpu")
+    ct = Ciphertext.from_numpy([np.asarray(p.data) for p in ref["encrypt"].c],
+                               ref["encrypt"].scale, True, "cpu")
+    before = other.rotate(ct, 1)
+    other.load_keys(_ref_state(rc))
+    assert other._jits == {}
+    got = other.rotate(ct, 1)
+    for r, t in zip(ref["rotate"].c, got.c):
+        _same(r.data, t.data)
+    assert not torch.equal(before.c[1].data, got.c[1].data)
+
+
 @pytest.mark.parametrize("op", OPS)
 def test_ciphertext_identical(pair, op):
     _, _, ref, port, _ = pair

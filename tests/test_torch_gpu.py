@@ -452,3 +452,122 @@ def test_sharded_paths_in_an_nccl_world(cuda, what):
         for name, want in (("rotate", rot), ("multiply_relin", mr), ("rescale", ckks.rescale(mr)),
                            ("conjugate", ckks.conjugate(ct))):
             assert all(np.array_equal(a, b) for a, b in zip(out[name], want.to_numpy())), name
+
+
+# ---------------------------------------------------------------------------
+# the per-op CUDA graphs (utils/jitcache.py)
+# ---------------------------------------------------------------------------
+
+def _graph_ctx(cuda, dnum=None):
+    import numpy as np
+    from rfhe_tpu_torch.fhe import CkksContext, CkksParams
+    ctx = CkksContext(CkksParams.make(n=1024, levels=3), seed=3, dnum=dnum, device=cuda)
+    zs = np.random.default_rng(7).uniform(-1, 1, (2, 512)) + 0j
+    return ctx, [ctx.encrypt(*ctx.encode(z)) for z in zs]
+
+
+@pytest.mark.parametrize("dnum", [None, 2])
+def test_replay_equals_eager(cuda, dnum):
+    """Every public CKKS op, graphed (a capture, then replays) and under
+    eager(), on the same inputs: equal arrays, equal scale."""
+    from rfhe_tpu_torch.utils.jitcache import eager
+    ctx, (a, b) = _graph_ctx(cuda, dnum)
+    ops = {"rotate": lambda x: ctx.rotate(x, 1), "conjugate": ctx.conjugate,
+           "multiply_relin": lambda x: ctx.multiply_relin(x, b), "add": lambda x: ctx.add(x, b),
+           "rescale": lambda x: ctx.rescale(ctx.multiply_relin(x, x)),
+           "multiply": lambda x: ctx.multiply(x, b)}
+    for name, op in ops.items():
+        with eager():
+            want = op(a)
+        for _ in range(3):
+            got = op(a)
+            assert got.scale == want.scale, name
+            assert all(torch.equal(x.data, y.data) for x, y in zip(got.c, want.c)), name
+    assert all(len(j.graphs) == 1 for j in ctx._jits.values())
+    assert sum(g.replays for j in ctx._jits.values() for g in j.graphs) > 0
+
+
+def test_interleaved_replays_leave_earlier_results(cuda):
+    """A, B, A, B through one graph: each result is the eager one of its
+    input, and the earlier results are not overwritten by later replays."""
+    from rfhe_tpu_torch.utils.jitcache import eager
+    ctx, (a, b) = _graph_ctx(cuda)
+    with eager():
+        want = {id(a): ctx.rotate(a, 1), id(b): ctx.rotate(b, 1)}
+    outs = [(x, ctx.rotate(x, 1)) for x in (a, b, a, b)]
+    torch.cuda.synchronize()
+    for x, out in outs:
+        assert all(torch.equal(p.data, q.data) for p, q in zip(out.c, want[id(x)].c))
+    assert not torch.equal(outs[0][1].c[0].data, outs[1][1].c[0].data)
+    (jit,) = [j for k, j in ctx._jits.items() if k[0] == "galois"]
+    assert len(jit.graphs) == 1 and jit.graphs[0].replays == 3
+
+
+def test_replay_counts_its_kernels(cuda):
+    """A replay adds the NTT counts the eager op makes; a capture adds none."""
+    from rfhe_tpu_torch.utils.jitcache import eager
+    ctx, (a, _) = _graph_ctx(cuda)
+    k = ntt_cuda.KERNELS
+
+    def counts(run):
+        k.reset_counts()
+        run()
+        return k.snapshot()
+
+    ctx.galois_key(ctx.rotation_galois_element(1))          # keygen launches NTTs too
+    with eager():
+        want = counts(lambda: ctx.rotate(a, 1))
+    assert want["launches"]["fwd"] > 0 and want["launches"]["inv"] > 0
+    assert counts(lambda: ctx.rotate(a, 1)) == want        # first call: eager warm-up, capture
+    assert counts(lambda: ctx.rotate(a, 1)) == want        # replay
+
+
+def test_capture_failure_raises(cuda):
+    """An op that syncs with the host cannot be captured: the call raises
+    with the op's name, it does not run eagerly instead; the side stream is
+    usable afterwards."""
+    from rfhe_tpu_torch.utils.jitcache import CaptureError, hoisted_jit
+    x = torch.arange(8, device=cuda)
+    bad = hoisted_jit(lambda t: t * int(t.sum().item()), name="syncs")
+    with pytest.raises(CaptureError, match="syncs"):
+        bad(x)
+    assert bad.graphs == []
+    good = hoisted_jit(lambda t: t + 1, name="adds")
+    for _ in range(3):
+        assert torch.equal(good(x), x + 1)
+    assert len(good.graphs) == 1 and good.graphs[0].replays == 2
+
+
+def test_load_keys_drops_the_graphs(cuda):
+    """After load_keys the ops run on the new keys: the graphs that read the
+    old ones are gone."""
+    from rfhe_tpu_torch.fhe import CkksContext, CkksParams
+    from rfhe_tpu_torch.utils.jitcache import eager
+    ctx, (a, _) = _graph_ctx(cuda)
+    other = CkksContext(CkksParams.make(n=1024, levels=3), seed=4, device=cuda)
+    other.galois_key(ctx.rotation_galois_element(1))
+    ctx.rotate(a, 1), ctx.rotate(a, 1)
+    ctx.load_keys(other.export_keys())
+    assert ctx._jits == {}
+    got = ctx.rotate(a, 1)
+    with eager():
+        want = other.rotate(a, 1)
+    assert all(torch.equal(p.data, q.data) for p, q in zip(got.c, want.c))
+
+
+def test_capture_while_a_dropped_context_is_collected(cuda):
+    """A context dropped with its graphs is freed by the cyclic collector;
+    a collection during another op's capture must not destroy a graph
+    inside that capture (it would invalidate it)."""
+    import gc
+    ctx, (a, _) = _graph_ctx(cuda)
+    ctx.rotate(a, 1), ctx.rotate(a, 1)
+    del ctx, a
+    other, (b, _) = _graph_ctx(cuda, dnum=2)
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        first, second = other.rotate(b, 1), other.rotate(b, 1)
+    finally:
+        gc.set_threshold(*old)
+    assert all(torch.equal(p.data, q.data) for p, q in zip(first.c, second.c))

@@ -2,15 +2,18 @@
 of tests/test_protected.py (n=256, 3 levels, 25-bit scale, seed 3; dnum None
 and 2): the digits with their checksum references, clean rotate and
 multiply_relin, every fault stage of tests/test_protected.py, and flip
-campaign rows.  Output arrays and every flag array are compared with
-tolerance 0.  The reference is called eagerly through `_galois_impl` and
+campaign rows; the public ops' cached programs (keys, fault locations as
+tensors through one program per stage).  Output arrays and every flag array
+are compared with tolerance 0.  The reference is called eagerly through `_galois_impl` and
 `_mul_relin_impl` with its probes built once per module, not through its
 per-stage jit programs."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import rfhe_tpu.utils.jitcache as ref_jitcache
 from rfhe_tpu.fhe import keys as ref_keys
 from rfhe_tpu.fhe.ckks import CkksContext as RefContext
 from rfhe_tpu.fhe.params import CkksParams as RefParams
@@ -155,6 +158,36 @@ def test_multiply_fault(pair, stage, keys):
     out = pair.tp.multiply_relin(pair.ct, pair.ct, Fault(stage, 0, 11, 7))
     _same_op(out, pair.ref_multiply(RefFault(stage, 0, 11, 7)))
     assert set(keys) <= set(_fired(out[1]))
+
+
+def test_tensor_fault_locations_share_one_program(pair):
+    """Two locations of one stage, arriving as 0-d tensors, run through the
+    stage's one cached program and equal the reference's at each."""
+    tp = ProtectedCkks(pair.tc)
+    for loc in ((1, 17, 9), (0, 200, 29)):
+        out = tp.rotate(pair.ct, 2, Fault("digits", *(torch.tensor(v) for v in loc)))
+        _same_op(out, pair.ref_rotate(2, RefFault("digits", *loc)))
+    assert list(tp._jits) == [("pgalois", pair.tc.rotation_galois_element(2), pair.lvl, "digits")]
+
+
+def _shapes_only(fn):
+    """A reference program traced abstractly: zeros of its output shapes."""
+    return lambda *args: jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
+                                                jax.eval_shape(fn, *args))
+
+
+def test_jits_keys_equal_the_reference(per_limb, monkeypatch):
+    """The same public calls, clean and faulted, create the reference's
+    `_jits` keys; the reference's programs run through a shape-only stand-in
+    for its `hoisted_jit` (its keys depend only on the calls and shapes)."""
+    pair = per_limb
+    monkeypatch.setattr(ref_jitcache, "hoisted_jit", _shapes_only)
+    rp, tp = pair.rp, ProtectedCkks(pair.tc)      # the pair's probes are built
+    for prot, ct, F in ((rp, pair.ref_ct, RefFault), (tp, pair.ct, Fault)):
+        prot.rotate(ct, 2), prot.rotate(ct, 2, F("acc0", 1, 5, 3))
+        prot.multiply_relin(ct, ct, F("intt_out", 0, 11, 7))
+    assert set(tp._jits) == set(rp._jits) and len(tp._jits) == 3
+    rp._jits.clear()                              # the stand-in's programs go with it
 
 
 @pytest.mark.parametrize("stage", ["intt_out", "acc0", "ks_out"])
