@@ -1,0 +1,224 @@
+"""BENCHMARK.json against the files it names, cells found by name, the
+metric readers on synthetic records, the import guard and the missing card."""
+import ast
+import hashlib
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from benchmark import harness, trace as tracing, yardstick
+from benchmark.tests import tiny
+
+ROOT = harness.ROOT
+BENCH = ROOT / "benchmark"
+SPEC = tiny.SPEC
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+
+
+def test_spec_keys_and_names():
+    assert set(SPEC) == {"command", "paths", "run_seconds", "configs", "workloads",
+                         "end_to_end", "per_layer"}
+    names = [x["name"] for k in ("configs", "workloads", "end_to_end", "per_layer")
+             for x in SPEC[k]]
+    assert all(NAME.match(n) for n in names) and len(set(names)) == len(names)
+    e2e = {m["name"] for m in SPEC["end_to_end"]}
+    assert "setup_s" in e2e
+    assert all(m["moves"] in e2e for m in SPEC["per_layer"])
+    assert all(0.01 <= m["bound"] <= 0.25 for m in SPEC["end_to_end"])
+    assert all(w["chips"] == 1 for w in SPEC["workloads"])
+    assert all(len(w["why"]) <= 200 for w in SPEC["workloads"])
+    keys = {"configs": {"name", "source", "file", "reduced", "why"},
+            "workloads": {"name", "config", "traffic", "chips", "why"},
+            "end_to_end": {"name", "unit", "better", "bound", "source"},
+            "per_layer": {"name", "unit", "better", "source", "layer", "moves"}}
+    for section, required in keys.items():
+        for entry in SPEC[section]:
+            extra = set(entry) - required
+            assert set(entry) >= required and extra <= {"workloads"}, (section, entry["name"])
+            assert "workloads" not in extra or section in ("end_to_end", "per_layer")
+    one_line = [c["why"] for c in SPEC["configs"]] + [c["source"] for c in SPEC["configs"]] \
+        + [w["why"] for w in SPEC["workloads"]] + [m["layer"] for m in SPEC["per_layer"]] \
+        + list(SPEC["command"])
+    assert all(1 <= len(t) <= 200 and "\n" not in t and "\t" not in t for t in one_line)
+    unit = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+    for m in SPEC["end_to_end"] + SPEC["per_layer"]:
+        assert unit.match(m["unit"]) and m["better"] in ("lower", "higher")
+        assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
+    assert all(m["source"] in ("host_clock", "device_trace") for m in SPEC["end_to_end"])
+    for c in SPEC["configs"]:
+        assert (ROOT / c["file"]).is_file() and c["file"].startswith("benchmark/")
+        assert json.loads((ROOT / c["file"]).read_text())["reduced"] == c["reduced"]
+
+
+@pytest.mark.parametrize("name", tiny.CELLS)
+def test_every_cell_resolves_to_its_files(name):
+    w, cfg, mix, limits = harness.cell(tiny.SPEC_ALL, name)
+    assert cfg["name"] == w["config"]
+    assert mix["kind"] in harness.circuits.KINDS
+    assert limits and all(isinstance(v, (int, float)) for v in limits.values())
+
+
+@pytest.mark.parametrize("metric", [m["name"] for k in ("end_to_end", "per_layer")
+                                    for m in SPEC[k]])
+def test_every_metric_has_a_reader(metric):
+    assert callable(harness.reader(metric))
+
+
+def _digest(root: Path) -> dict:
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_new_config_mix_and_metric_are_found_without_an_edit(tmp_path):
+    shutil.copytree(BENCH, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    before = _digest(tmp_path)
+    b = tmp_path / "benchmark"
+    cfg = json.loads((b / "configs/ckks_n65536_l21.json").read_text())
+    cfg["name"] = "ckks_tiny"
+    cfg["deployment"].update(tiny.TINY["ckks"])
+    (b / "configs/ckks_tiny.json").write_text(json.dumps(cfg))
+    (b / "traffic/bsgs_d8.json").write_text(json.dumps(
+        {"kind": "bsgs_matvec", "d": 8, "pool": 2, "sample": 2}))
+    (b / "limits/ckks_tiny.bsgs_d8.json").write_text(json.dumps(
+        {"slot_err": 0.01, "limb_mismatch": 0}))
+    (b / "metrics/circuits_total.py").write_text("def read(run):\n    return len(run.ends)\n")
+    spec = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "ckks_tiny", "source": "a test",
+                            "file": "benchmark/configs/ckks_tiny.json", "reduced": []})
+    spec["workloads"].append({"name": "ckks_tiny.bsgs_d8", "config": "ckks_tiny",
+                              "traffic": "bsgs_d8", "chips": 1, "why": "a test"})
+    spec["end_to_end"].append({"name": "circuits_total", "unit": "circuits",
+                               "better": "higher", "bound": 0.05, "source": "host_clock"})
+    after = _digest(tmp_path)
+    assert {k: v for k, v in after.items() if k in before} == before
+    parts = harness.cell(spec, "ckks_tiny.bsgs_d8", tmp_path)
+    correct, failed, checks, r = tiny.run("ckks_tiny.bsgs_d8", cut=parts)
+    assert correct, checks
+    got = {m["name"]: harness.reader(m["name"], tmp_path)(r) for m in spec["end_to_end"]}
+    assert got["circuits_total"] == len(r.ends) and got["circuits_per_s"] > 0
+
+
+def _synthetic_trace():
+    """Two circuits in a 1000 µs window: an NTT kernel (100 µs, overlapping
+    a residue kernel of 100 µs by 50), a copy of 50 µs and a fill of 40, so
+    760 µs idle; the longest gap, 450 µs, opens while the client waits."""
+    recs = [
+        ("cudaGraphLaunch", False, 20, 25), ("cudaMemcpyAsync", False, 30, 32),
+        ("cudaLaunchKernel", False, 510, 512), ("cudaStreamSynchronize", False, 240, 700),
+        ("void ntt_fwd_cluster_kernel(long const*)", True, 100, 200),
+        ("void at::native::vectorized_elementwise_kernel<4, at::native::remainder>",
+         True, 150, 250),
+        ("Memcpy DtoD (Device -> Device)", True, 700, 750),
+        ("void at::native::vectorized_elementwise_kernel<4, FillFunctor<long>>", True, 760, 800),
+        ("void ntt_inv_kernel<4>(long const*)", True, 2000, 2100),     # after the window
+    ]
+    spans = [(10_000, 60_000, 480_000), (500_000, 600_000, 990_000)]
+    return tracing.collect(recs, (0, 1_000_000), spans,
+                           ntt_by_shape={("fwd_large", 1, 2, 65536): 3})
+
+
+def test_readers_give_known_answers_on_synthetic_records():
+    t = _synthetic_trace()
+    run = harness.Run(setup_s=12.5, starts=[0.0, 1.0, 2.0], ends=[0.5, 1.5, 4.0],
+                      window_s=4.0, peak_bytes=3 * 2 ** 30, trace=t)
+    read = lambda m: harness.reader(m)(run)
+    assert read("circuits_per_s") == 3 / 4.0
+    assert read("peak_mem_gib") == 3.0 and read("setup_s") == 12.5
+    assert read("circuit_p95_ms") == pytest.approx(500 + 1500 * 0.9)
+    assert read("host_enqueue_ms_per_circuit") == pytest.approx((50 + 100) / 2 * 1e-3)
+    assert read("host_launches_per_circuit") == 3 / 2
+    assert read("ntt_device_ms_per_circuit") == pytest.approx(100e-3 / 2)
+    assert read("residue_device_ms_per_circuit") == pytest.approx(100e-3 / 2)
+    assert read("device_busy_ms_per_circuit") == pytest.approx(240e-3 / 2)
+    assert read("device_idle_pct") == pytest.approx(100 * (1 - 240 / 1000))
+    least = 3 * 2 * yardstick.ntt_least_s(65536)[0]
+    assert read("ntt_roofline_pct") == pytest.approx(100 * least / 100e-6)
+    assert yardstick.ntt_least_s(65536)[1] == "operations"
+    assert t.gaps[0] == ["wait: cudaStreamSynchronize", pytest.approx(450e-6)]
+    assert t.top_ops(1)[0][1] == pytest.approx(100e-6)
+
+
+def test_readers_find_nothing_without_a_trace():
+    run = harness.Run(setup_s=1.0, starts=[0.0], ends=[1.0], window_s=1.0, peak_bytes=0)
+    for m in SPEC["per_layer"]:
+        assert harness.reader(m["name"])(run) is None
+
+
+def test_p95_is_of_every_circuit():
+    run = harness.Run(setup_s=1.0, starts=[0.0] * 100, ends=[i / 1000 for i in range(1, 101)],
+                      window_s=1.0, peak_bytes=0)
+    assert harness.reader("circuit_p95_ms")(run) == pytest.approx(95.05)
+
+
+def _imports(path: Path) -> set:
+    tree = ast.parse(path.read_text())
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.add(node.module.split(".")[0])
+    return out
+
+
+def test_the_reference_imports_nothing_of_the_program():
+    for path in (BENCH / "reference").glob("*.py"):
+        assert not _imports(path) & {"rfhe_tpu_torch", "rfhe_tpu", "jax", "benchmark"}, path
+    code = ("import sys, benchmark.reference.ntt, benchmark.reference.scheme; "
+            "print(sorted({m.split('.')[0] for m in sys.modules}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True).stdout
+    assert not set(eval(out)) & {"rfhe_tpu_torch", "rfhe_tpu", "jax", "jaxlib", "flax"}
+
+
+def test_a_run_loads_no_jax_and_no_jax_package():
+    code = ("import sys, json; from benchmark.tests import tiny; "
+            "[tiny.run(c, seconds=0.05) for c in tiny.CELLS]; "
+            "from benchmark import run; print(json.dumps(run.forbidden_modules())); "
+            "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
+    env = dict(os.environ)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, env=env).stdout.splitlines()
+    assert json.loads(out[-2]) == []
+    loaded = set(json.loads(out[-1]))
+    assert "rfhe_tpu_torch" in loaded and not loaded & {"jax", "jaxlib", "flax", "rfhe_tpu"}
+
+
+def test_no_card_no_result():
+    proc = subprocess.run([sys.executable, "-m", "benchmark.run", "--workload", tiny.CELLS[0],
+                           "--seed", "1", "--seconds", "1", "--trace", "0"], cwd=ROOT,
+                          capture_output=True, text=True, env=dict(os.environ,
+                                                                   CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode == 2 and proc.stdout == ""
+
+
+def test_without_the_program_no_result(tmp_path):
+    shutil.copytree(BENCH, tmp_path / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    proc = subprocess.run([sys.executable, "-m", "benchmark.run", "--workload", tiny.CELLS[0],
+                           "--seed", "1", "--seconds", "1", "--trace", "0"], cwd=tmp_path,
+                          capture_output=True, text=True,
+                          env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+    assert proc.returncode != 0 and proc.stdout == ""
+
+
+@pytest.mark.gpu
+def test_a_cell_on_the_card():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    proc = subprocess.run([sys.executable, "-m", "benchmark.run", "--workload",
+                           tiny.SPEC["workloads"][0]["name"], "--seed", str(2 ** 31 + 5),
+                           "--seconds", "2", "--trace", "1"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    result = json.loads(proc.stdout.splitlines()[-1])
+    assert result["correct"] and result["device"]["busy_s"] > 0
