@@ -57,6 +57,7 @@ import torch
 
 from ..device import device_records, padded_profile, require
 from ..trace.profiled import MODDOWN_PARTS, PHASES, ProfiledRotation
+from ..trace.spans import named_range
 from .ops_devtime import write_csv
 from .sweeps import prefix
 
@@ -135,7 +136,7 @@ def phase_times(ckks, level: Optional[int] = None, reps: int = 5) -> Dict[str, f
         with padded_profile() as prof:
             for _ in range(reps):
                 prof_rot.rotate(ct, 1)
-            with torch.profiler.record_function(ALONE):
+            with named_range(ALONE):
                 for _ in range(reps):
                     ckks.rotate(ct, 1)
                 torch.cuda.synchronize()

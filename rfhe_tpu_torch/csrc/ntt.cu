@@ -34,6 +34,8 @@
 // The device functions of the large-ring section below (register rounds,
 // twiddle slots, exchanges, the closed-form slot) serve all kernels; the
 // one-block kernels follow the cluster kernels, whose shape they share.
+// Last comes `rfhe_span_mark`, no transform: trace/spans.py's one-thread
+// clock mark, kept here so that it builds and loads with the kernels.
 
 #include <cstdint>
 #include <map>
@@ -1123,6 +1125,24 @@ int launch_one_block(bool inverse, const void* in, void* out, const void* tw,
   return launch(inverse, in, out, tw, consts, limbs, L, B, G, log_n, log_na, log_n1, stream);
 }
 
+// A span boundary of trace/spans.py, in stream order: not part of any
+// transform.  acc holds three int64 words per span (the time it last opened,
+// the nanoseconds it has been open, the times it closed); bit i of `closes`
+// and `opens` is span i.  One thread reads the card's nanosecond clock, adds
+// the time since its opening to each span it closes and counts it, then
+// stamps each span it opens.  Kernels of one stream run one after another,
+// so the time between two marks is the work enqueued between them.
+__global__ void rfhe_span_mark(int64_t* acc, uint64_t closes, uint64_t opens) {
+  uint64_t now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  for (uint64_t m = closes; m; m &= m - 1) {
+    int64_t* span = acc + 3 * (__ffsll((long long)m) - 1);
+    span[1] += (int64_t)now - span[0];
+    span[2] += 1;
+  }
+  for (uint64_t m = opens; m; m &= m - 1) acc[3 * (__ffsll((long long)m) - 1)] = (int64_t)now;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1188,6 +1208,12 @@ int rfhe_ntt_inv_cluster(const void* y, void* x, const void* tw, const void* con
                          int log_c, int log_n1, void* stream) {
   return launch_cluster(true, y, x, tw, consts, limbs, L, B, G, log_n, log_na, log_c,
                         log_n1, stream);
+}
+
+// One span boundary (rfhe_span_mark above): one thread on `stream`.
+int rfhe_span_mark_launch(void* acc, uint64_t closes, uint64_t opens, void* stream) {
+  rfhe_span_mark<<<1, 1, 0, (cudaStream_t)stream>>>((int64_t*)acc, closes, opens);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

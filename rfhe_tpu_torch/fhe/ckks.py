@@ -25,6 +25,7 @@ from ..device import to_numpy_u32, to_torch
 from ..numth import crt_constants
 from ..ops.crt64 import Crt64Plan, crt_to_words, words_to_signed
 from ..ops.modarith import add_mod, mont_mul, sub_mod
+from ..trace import spans
 from ..utils.jitcache import GraphPool, HoistedJit, hoisted_jit
 from .keys import (
     KeyGen, KeySwitchKey, PublicKey, SecretKey, _digit_groups,
@@ -383,9 +384,12 @@ class CkksContext:
                           ct.scale * pt_scale)
 
     def _apply_galois_impl(self, ct: Ciphertext, ksk: KeySwitchKey, g: int) -> Ciphertext:
-        c0g = poly_automorphism(ct.c[0], g, self.ctx)
-        c1g = poly_automorphism(ct.c[1], g, self.ctx)
-        c1_coeff = poly_intt(c1g, self.ctx)
+        with spans.phases() as phase:                   # traced: trace/spans.py
+            phase("PERMUTE")
+            c0g = poly_automorphism(ct.c[0], g, self.ctx)
+            c1g = poly_automorphism(ct.c[1], g, self.ctx)
+            phase("INTT")
+            c1_coeff = poly_intt(c1g, self.ctx)
         k0, k1 = keyswitch(c1_coeff.data, ksk, ct.level, self.ctx, self.L, dnum=self.dnum)
         c0 = poly_add(c0g, RnsPoly(k0, True), self.ctx)
         return Ciphertext([c0, RnsPoly(k1, True)], ct.scale)

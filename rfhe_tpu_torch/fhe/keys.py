@@ -24,6 +24,7 @@ import torch
 from ..device import to_torch
 from ..numth import mod_inv, shoup_precompute
 from ..ops.modarith import add_mod, mont_mul, mul_mod, mul_mod_shoup, sub_mod
+from ..trace import spans
 from ..utils.jitcache import by_reference
 from .rns import RnsContext, drop_limb
 
@@ -292,23 +293,32 @@ def keyswitch(d_coeff: torch.Tensor, ksk: KeySwitchKey, level: int,
     limbs by default) are the ciphertext limbs the result is computed for,
     (len(targets), N) each: every step after the digits is limb-local, so a
     rank of the limb-sharded evaluator computes its own limbs and the special
-    ones only, from the whole d."""
+    ones only, from the whole d.
+
+    Traced (`trace/spans.py`), the keyswitch is the span KEYSWITCH and its
+    phases BASECONV (the digits), NTT, MULTEVK (the key's rows, the MAC and
+    the digit sum) and MODDOWN."""
     L = n_ct_limbs
     sp_idx = list(range(L, len(ctx.moduli)))
     keep = list(range(level + 1)) if targets is None else list(targets)
-    dig, used, lim = compute_digits(d_coeff, level, ctx, L, dnum, targets=keep)
-    sub_plan = ctx.plan.take(lim)
-    dig_ntt = sub_plan.fwd(dig)
-    key_idx = ctx.index(ksk.rows(lim))
-    used_idx = ctx.index(used)
-    q, rinv = sub_plan.qb(1), sub_plan.rinvb(1)
-    acc = []
-    for k in (ksk.b, ksk.a):
-        kk = k.index_select(0, used_idx).index_select(1, key_idx)
-        acc.append(_sum_digits(mont_mul(dig_ntt, kk, q, rinv), q))
-    out = torch.stack(acc)
-    for k_i in range(len(sp_idx) - 1, -1, -1):
-        out = drop_limb(out, sp_idx[k_i], keep + sp_idx[:k_i], ctx, t)
+    with spans.phases(spans.KEYSWITCH) as phase:
+        phase("BASECONV")
+        dig, used, lim = compute_digits(d_coeff, level, ctx, L, dnum, targets=keep)
+        phase("NTT")
+        sub_plan = ctx.plan.take(lim)
+        dig_ntt = sub_plan.fwd(dig)
+        phase("MULTEVK")
+        key_idx = ctx.index(ksk.rows(lim))
+        used_idx = ctx.index(used)
+        q, rinv = sub_plan.qb(1), sub_plan.rinvb(1)
+        acc = []
+        for k in (ksk.b, ksk.a):
+            kk = k.index_select(0, used_idx).index_select(1, key_idx)
+            acc.append(_sum_digits(mont_mul(dig_ntt, kk, q, rinv), q))
+        out = torch.stack(acc)
+        phase("MODDOWN")
+        for k_i in range(len(sp_idx) - 1, -1, -1):
+            out = drop_limb(out, sp_idx[k_i], keep + sp_idx[:k_i], ctx, t)
     return out[0], out[1]
 
 

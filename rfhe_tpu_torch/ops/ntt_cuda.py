@@ -319,6 +319,7 @@ class NttKernels:
                 "rfhe_ntt_inv_row": [ptr] * 5 + [num] * 7 + [ptr],
                 "rfhe_ntt_fwd_cluster": [ptr] * 5 + [num] * 7 + [ptr],
                 "rfhe_ntt_inv_cluster": [ptr] * 5 + [num] * 7 + [ptr],
+                "rfhe_span_mark_launch": [ptr, ctypes.c_uint64, ctypes.c_uint64, ptr],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

@@ -9,21 +9,21 @@ two levels (SURVEY.md §5):
 `scope()` emits the frontend markers and `kernel_cost()` / `kernel()` the
 kernel lines; TraceCollector keeps the structured events, and
 trace/analyze.py parses the text form.  Both `scope` and `kernel` also open
-a `torch.profiler.record_function` range of the same name, so a profile of
-the region attributes the device's kernels to the phase that launched them
-(bench/phase_profile.py).  `torch_trace()` writes a Chrome trace of a region
-with torch.profiler, where the reference layers jax.profiler (`xla_trace`).
+a `torch.profiler.record_function` range of the same name (through
+`spans.named_range`), so a profile of the region attributes the device's
+kernels to the phase that launched them (bench/phase_profile.py).
 """
 from __future__ import annotations
 
 import contextlib
 import io
-import os
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional, TextIO
 
 import torch
+
+from . import spans
 
 
 @dataclass
@@ -63,7 +63,7 @@ class TraceCollector:
         self._depth += 1
         t0 = time.perf_counter()
         try:
-            with torch.profiler.record_function(name):
+            with spans.named_range(name):
                 yield
         finally:
             us = (time.perf_counter() - t0) * 1e6
@@ -86,7 +86,7 @@ class TraceCollector:
         wait = synchronizer(sync)
         t0 = time.perf_counter()
         try:
-            with torch.profiler.record_function(tag):
+            with spans.named_range(tag):
                 yield
                 if wait is not None:
                     wait()
@@ -111,19 +111,3 @@ class TraceCollector:
                 continue
             agg[ev.tag] = agg.get(ev.tag, 0.0) + ev.micros
         return agg
-
-
-@contextlib.contextmanager
-def torch_trace(log_dir: str, name: str = "trace.json"):
-    """Profile the block with torch.profiler (the host, and the card where
-    there is one) and write a Chrome trace to `log_dir/name`; yields the
-    profiler.  The counterpart of the reference's `xla_trace`."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities, record_shapes=True) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, name))

@@ -15,6 +15,9 @@ format:
   MULTEVK   dyadic MAC against the key and the digit sum
   MODDOWN   divide-and-round by the special primes, and c0 + the c0 delta
 
+These are `spans.PHASES`, the names of the spans of the main path
+(`fhe/ckks.py`, `fhe/keys.py`), whose MODDOWN is the mod-down alone.
+
 Each phase is also a `torch.profiler.record_function` range, and so are the
 mod-down's constituents, once per special prime (`MD_INTT` the special
 limb's inverse NTT, `MD_BASECONV` its centred lift to the kept limbs,
@@ -43,8 +46,8 @@ from ..ops.modarith import add_mod, mont_mul, mul_mod_shoup, sub_mod
 from ..ops.ntt_pease import negacyclic_intt, negacyclic_ntt
 from ..utils.jitcache import HoistedJit, hoisted_jit
 from .markers import TraceCollector, synchronizer
+from .spans import PHASES, named_range
 
-PHASES = ("PERMUTE", "INTT", "BASECONV", "NTT", "MULTEVK", "MODDOWN")
 MODDOWN_PARTS = ("MD_INTT", "MD_BASECONV", "MD_NTT", "MD_MODMUL")
 
 
@@ -52,7 +55,7 @@ MODDOWN_PARTS = ("MD_INTT", "MD_BASECONV", "MD_NTT", "MD_MODMUL")
 def _part(tag: str, sync):
     """A mod-down constituent: a record_function range that ends after the
     device has finished its launches."""
-    with torch.profiler.record_function(tag):
+    with named_range(tag):
         yield
         if sync is not None:
             sync()

@@ -27,7 +27,10 @@ included), on the same tables, so its arrays are the eager op's bit for bit.
 The signature is the flattened argument tree (lists, tuples, dicts, None,
 Python scalars as static values, and objects with `tree_flatten` /
 `tree_unflatten`: a Ciphertext's components are children, its scale and
-correction static) with each tensor's (shape, stride, dtype, device).  An
+correction static) with each tensor's (shape, stride, dtype, device), and
+the card that tracing marks (`trace/spans.py`'s MARKING, None when it is
+off): a graph captured with tracing on holds its spans' marks, and is never
+served with tracing off, nor the other way round.  An
 object of a class marked `by_reference` (the keys, the protected probes) is
 not copied: the graph reads its tensors where they lie, so its identity and
 its tensors' addresses are part of the signature, and the cache entry holds
@@ -45,7 +48,10 @@ capture that fails raises with the op's name; nothing falls back to the
 eager op on the card.  The kernels' launch counters (`ntt_cuda.KERNELS`) are
 Python increments at launch time, so a capture records the counts it made
 and takes them back (it ran nothing), and every replay adds them again: the
-counters count transforms that ran, not host calls.
+counters count transforms that ran, not host calls.  `spans.COUNTS` counts
+what the cache does on every call: replays, captures, the tensors copied in
+and cloned out and their bytes (a `Graph` knows its own at capture), calls
+run eagerly on the card.  With tracing on, each call is a host span DISPATCH.
 """
 from __future__ import annotations
 
@@ -57,7 +63,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..trace import spans as _spans
+
 _EAGER = [0]        # depth of `eager()` blocks (the counterpart of jax.disable_jit)
+_DISPATCHING = [False]  # inside an op's DISPATCH span (tracing on)
 
 
 @contextlib.contextmanager
@@ -151,13 +160,14 @@ def held_tensors(held: list) -> List[torch.Tensor]:
 
 
 def _signature(tensors: list, held: list, tdef: tuple) -> tuple:
-    return tdef, tuple(_tensor_sig(t) for t in tensors), tuple(_held_sig(h) for h in held)
+    return (tdef, tuple(_tensor_sig(t) for t in tensors), tuple(_held_sig(h) for h in held),
+            _spans.MARKING)
 
 
 def signature(args: tuple) -> tuple:
     """What selects a graph: the tree definition, each copied tensor's
     (shape, stride, dtype, device), each held object's identity and the
-    addresses of its tensors."""
+    addresses of its tensors, and the card tracing marks (None: off)."""
     return _signature(*flatten(args))
 
 
@@ -201,7 +211,8 @@ def _kernels():
 @dataclass
 class Graph:
     """One captured signature: the graph, its static inputs and outputs, the
-    objects it reads by reference, the counter deltas of one run."""
+    objects it reads by reference, the counter deltas of one run, and the
+    bytes a replay copies in and clones out."""
     graph: Any
     inputs: List[torch.Tensor]
     held: list
@@ -210,6 +221,15 @@ class Graph:
     counts: dict
     capture_s: float
     replays: int = 0
+
+    def __post_init__(self) -> None:
+        self.in_bytes = nbytes(self.inputs)
+        self.out_bytes = nbytes(self.outputs)
+
+
+def nbytes(tensors: List[torch.Tensor]) -> int:
+    """Bytes a copy of each of `tensors` moves."""
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 class CaptureError(RuntimeError):
@@ -233,9 +253,20 @@ class HoistedJit:
         return list(self._cache.values())
 
     def __call__(self, *args):
+        if _spans.ENABLED and not _DISPATCHING[0]:
+            _DISPATCHING[0] = True          # an op called inside an op is in its span
+            try:
+                with _spans.host_span(_spans.DISPATCH, self.name):
+                    return self._dispatch(args)
+            finally:
+                _DISPATCHING[0] = False
+        return self._dispatch(args)
+
+    def _dispatch(self, args: tuple):
         tensors, held, tdef = flatten(args)
         cuda = [t for t in tensors + held_tensors(held) if t.device.type == "cuda"]
         if _EAGER[0] or not cuda or torch.cuda.is_current_stream_capturing():
+            _spans.COUNTS.eager_on_card += bool(_EAGER[0] and cuda)
             return self._fn(*args)
         off = [t.device for t in tensors if t.device.type != "cuda"]
         if off:
@@ -250,6 +281,12 @@ class HoistedJit:
         entry.graph.replay()
         entry.replays += 1
         _kernels().add(entry.counts)
+        tally = _spans.COUNTS
+        tally.replays += 1
+        tally.copies_in += len(entry.inputs)
+        tally.copy_in_bytes += entry.in_bytes
+        tally.clones_out += len(entry.outputs)
+        tally.clone_out_bytes += entry.out_bytes
         return unflatten(entry.out_def, [o.clone() for o in entry.outputs], [])
 
     def _capture(self, sig, args, tensors, held, tdef, device: torch.device):
@@ -292,6 +329,10 @@ class HoistedJit:
             if out_held:
                 raise CaptureError(f"{self.name!r} returns objects held by reference")
         current.wait_stream(side)
+        tally = _spans.COUNTS
+        tally.captures += 1
+        tally.copies_in += len(inputs)
+        tally.copy_in_bytes += nbytes(inputs)
         self._pool.graphs += 1
         self._pool.bytes += torch.cuda.memory_reserved(device) - reserved
         self._pool.capture_s += capture_s

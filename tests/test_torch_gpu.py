@@ -571,3 +571,83 @@ def test_capture_while_a_dropped_context_is_collected(cuda):
     finally:
         gc.set_threshold(*old)
     assert all(torch.equal(p.data, q.data) for p, q in zip(first.c, second.c))
+
+
+def _kernel_names(run):
+    """The device records of `run()` by name in start order, copies and
+    fills left out, from a padded profile that lost none of them."""
+    from rfhe_tpu_torch.device import device_records, padded_profile
+    for _ in range(3):
+        with padded_profile() as prof:
+            run()
+        device, _, lost = device_records(prof.events())
+        if lost == 0:
+            return [ev.name for ev in sorted(device, key=lambda e: e.time_range.start)
+                    if not ev.name.startswith(("Memcpy", "Memset"))]
+    raise AssertionError(f"three profiles lost device records ({lost} in the last)")
+
+
+@pytest.mark.parametrize("dnum", [None, 2])
+def test_traced_rotation_equals_untraced(cuda, dnum):
+    """With tracing on, a rotation captures a graph of its own, whose result
+    is the untraced one bit for bit and whose replays add each phase's time
+    on the card; with tracing off again, the first graph serves."""
+    from rfhe_tpu_torch.trace import spans
+    ctx, (a, _) = _graph_ctx(cuda, dnum)
+    want = [ctx.rotate(a, 1) for _ in range(2)][-1]
+    spans.enable(cuda)
+    try:
+        snap = spans.snapshot()
+        got = [ctx.rotate(a, 1) for _ in range(3)]      # eager warm-up, capture, 2 replays
+        read = spans.since(snap)
+    finally:
+        spans.disable()
+    again = ctx.rotate(a, 1)
+    for out in got + [again]:
+        assert all(torch.equal(x.data, y.data) for x, y in zip(out.c, want.c))
+    (jit,) = [j for k, j in ctx._jits.items() if k[0] == "galois"]
+    assert [g.replays for g in jit.graphs] == [2, 2]
+    for name in spans.PHASES + (spans.KEYSWITCH,):
+        assert read[name]["device_count"] == 3 and read[name]["device_ns"] > 0, name
+    assert read["MULTEVK"]["parent"] == spans.KEYSWITCH
+    assert read[spans.KEYSWITCH]["self_device_ns"] >= 0
+    assert read[spans.DISPATCH]["count"] == 3 and read[spans.DISPATCH]["device_count"] == 0
+
+
+def test_untraced_replay_holds_no_marks(cuda):
+    """Tracing off, a replay launches the eager op's kernels and no mark;
+    tracing on, the same kernels and the rotation's 8 marks."""
+    from rfhe_tpu_torch.trace import spans
+    from rfhe_tpu_torch.utils.jitcache import eager
+    ctx, (a, _) = _graph_ctx(cuda)
+    ctx.rotate(a, 1), ctx.rotate(a, 1)
+    off = _kernel_names(lambda: ctx.rotate(a, 1))
+    with eager():
+        plain = _kernel_names(lambda: ctx.rotate(a, 1))
+    spans.enable(cuda)
+    try:
+        ctx.rotate(a, 1)
+        on = _kernel_names(lambda: ctx.rotate(a, 1))
+    finally:
+        spans.disable()
+    assert off == plain and not any("rfhe_span_mark" in k for k in off)
+    assert sum("rfhe_span_mark" in k for k in on) == 8
+    assert [k for k in on if "rfhe_span_mark" not in k] == off
+
+
+def test_copy_counter_equals_the_shapes(cuda):
+    """A replay counts the argument tensors it copies in and the outputs it
+    clones, with their bytes as their shapes give them; an op under eager()
+    on the card is counted as such."""
+    from rfhe_tpu_torch.trace import spans
+    from rfhe_tpu_torch.utils.jitcache import eager
+    ctx, (a, b) = _graph_ctx(cuda)
+    ctx.rotate(a, 1), ctx.add(a, b)
+    snap = spans.COUNTS.snapshot()
+    ctx.rotate(a, 1), ctx.add(a, b)
+    with eager():
+        ctx.add(a, b)
+    poly = a.c[0].data.numel() * 8                     # one component, int64
+    assert spans.COUNTS.since(snap) == {
+        "replays": 2, "captures": 0, "copies_in": 2 + 4, "copy_in_bytes": (2 + 4) * poly,
+        "clones_out": 2 + 2, "clone_out_bytes": (2 + 2) * poly, "eager_on_card": 1}

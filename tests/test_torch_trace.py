@@ -16,7 +16,7 @@ from rfhe_tpu.trace import (TraceCollector as RefCollector, TraceEvent as RefEve
 from rfhe_tpu_torch.fhe import CkksContext, CkksParams
 from rfhe_tpu_torch.trace import (ProfiledRotation, TraceCollector, TraceEvent,
                                   collapse_kernel_runs, evaluator_cost_report, format_report,
-                                  op_cost, summarize_roi, torch_trace)
+                                  op_cost, summarize_roi)
 from rfhe_tpu_torch.trace.profiled import MODDOWN_PARTS, PHASES
 
 torch.set_num_threads(1)
@@ -159,8 +159,3 @@ def test_op_cost_keys_on_the_cpu(rotations):
     assert format_report(report).splitlines()[0].split() == ["op", "device", "ops", "kernel",
                                                              "us", "MB", "moved"]
 
-
-def test_torch_trace_writes_a_chrome_trace(tmp_path):
-    with torch_trace(str(tmp_path)) as prof:
-        torch.ones(4) + 1
-    assert prof is not None and (tmp_path / "trace.json").stat().st_size > 0
