@@ -19,6 +19,12 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
      random residues with one bit flipped per vector (words up to 2^32, some
      at or above q, as a fault stage hands them to the kernels), which go
      through both directions
+  3b. MULTEVK's kernel (rfhe_ks_mac_kernel, fhe/keys.py:multevk) against its
+     plain version, bit for bit, at the keyswitch's shapes: 21 digits x 22
+     limbs at N=65536 (bsgs), 3 x 28 (dnum=3) and 10 x 11 at N=16384 (BGV),
+     random words and the worst ones (digits 2^32 - 1, keys q - 1), one
+     launch a call; its time by the device timer beside its byte bound and
+     the plain version's
   4. N=4096 path: CKKS with 21 ciphertext primes and one special prime (the
      reference's bench.py configuration): encode, encrypt, rotate by 1,
      decrypt; multiply_relin, rescale, decrypt; the keyswitch digits of c1
@@ -230,10 +236,11 @@ from rfhe_tpu_torch.fhe import (BehzPlan, BfvContext, BfvParams, BgvContext, Bgv
                                 Ciphertext, CkksContext, CkksParams)
 from rfhe_tpu_torch.fhe.bgv import special_primes
 from rfhe_tpu_torch.fhe.ckks import rns_to_signed
-from rfhe_tpu_torch.fhe.keys import compute_digits
+from rfhe_tpu_torch.fhe.keys import (KeySwitchKey, compute_digits, digit_basis, multevk,
+                                     multevk_plain)
 from rfhe_tpu_torch.fhe.protected import Fault, ProtectedBgv, ProtectedCkks, all_ok
 from rfhe_tpu_torch.fhe.params import make_prime_chain
-from rfhe_tpu_torch.fhe.rns import poly_intt
+from rfhe_tpu_torch.fhe.rns import RnsContext, poly_intt
 from rfhe_tpu_torch.models import bsgs, motivation
 from rfhe_tpu_torch.models.dotprod import dot_product_bgv
 from rfhe_tpu_torch.numth import find_ntt_prime, find_ntt_primes
@@ -325,6 +332,65 @@ def phase_build() -> None:
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
+
+
+# MULTEVK's kernel at the keyswitch's shapes: (name, ring, prime bit sizes,
+# ciphertext limbs, dnum), the rest of the chain the special primes.
+KS_MAC_SHAPES = (("bsgs", 65536, [30] + [28] * 20 + [30], 21, None),
+                 (f"dnum={DNUM}", 65536, [30] + [28] * 20 + [30] * 7, 21, DNUM),
+                 ("BGV", 16384, [30] * 10 + [31], 10, None))
+
+
+def ks_mac_bound_ms(n_used: int, n_lim: int, n: int) -> float:
+    """The MAC's least time: the digits and both keys' rows read once and
+    the two accumulators written once, as int64 words, over the HBM rate."""
+    return 8 * n * n_lim * (3 * n_used + 2) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_ks_mac(c: str) -> dict:
+    """`multevk` on the card (one `rfhe_ks_mac_kernel` launch a call)
+    against `multevk_plain` at the top level of each of KS_MAC_SHAPES, on
+    random words and on the worst ones, then both timed: the kernel twice by
+    the device timer and once host-paced, the plain version host-paced before
+    and after."""
+    out = {}
+    for name, n, bits, L, dnum in KS_MAC_SHAPES:
+        ctx = RnsContext.make(n, make_prime_chain(n, bits), "cuda")
+        _, used, lim = digit_basis(L - 1, ctx, L, dnum)
+        q = ctx.plan.q_arr[None, :, None]
+        g = torch.Generator(device="cuda").manual_seed(n + L)
+        shape = (L if dnum is None else dnum, ctx.L, n)
+        key = lambda: torch.randint(0, 1 << 62, shape, device="cuda", generator=g) % q
+        ksk = KeySwitchKey(b=key(), a=key())
+        dig = torch.randint(0, 1 << 32, (len(used), len(lim), n), device="cuda", generator=g)
+        top = (q - 1).expand(shape).contiguous()
+        before = ntt_cuda.KERNELS.snapshot()
+        for words, k in (("random", (dig, ksk)),
+                         ("worst", (torch.full_like(dig, (1 << 32) - 1), KeySwitchKey(b=top, a=top)))):
+            got = multevk(k[0], k[1], used, lim, ctx)
+            want = multevk_plain(k[0], k[1], used, lim, ctx)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"ks_mac {name} {words}: {int((got != want).sum())} words "
+                                   f"differ from the plain version")
+        calls = ntt_cuda.KERNELS.since(before)["ks_mac"]
+        if calls != {(len(used), len(lim), n): 2}:
+            raise RuntimeError(f"ks_mac {name}: launches {calls} for 2 calls")
+        kernel = lambda: multevk(dig, ksk, used, lim, ctx)
+        plain = lambda: multevk_plain(dig, ksk, used, lim, ctx)
+        p1 = cuda_ms(plain, 4)
+        k1, k2 = device_ms(kernel), device_ms(kernel)
+        paced = cuda_ms(kernel)
+        p2 = cuda_ms(plain, 4)
+        b = ks_mac_bound_ms(len(used), len(lim), n)
+        print(f"[ks_mac] {c}: {name} ({len(used)}, {len(lim)}, {n}): equal to the plain version on "
+              f"random and worst words; kernel {k1:.4f} / {k2:.4f} ms by the device timer, "
+              f"{paced:.4f} ms host-paced, plain {p1:.4f} / {p2:.4f} ms host-paced (plain, kernel, "
+              f"kernel, plain), bound {b:.4f} ms by bytes, share of bound {200 * b / (k1 + k2):.1f}%")
+        out[name] = {"shape": [len(used), len(lim), n], "ms": (k1 + k2) / 2, "paced_ms": paced,
+                     "plain_ms": (p1 + p2) / 2, "bound_ms": b, "bound_by": "bytes"}
+        del ctx, ksk, dig, top
+    return out
 
 
 def basis(n: int, n_special: int) -> tuple:
@@ -586,6 +652,7 @@ def drive_counted(tag: str, what: str, params: dict, dnum=None, twice: bool = Fa
     secs = time.perf_counter() - t0
     k = ntt_cuda.KERNELS
     launches, passes, by_kernels = dict(k.launches), dict(k.passes), dict(k.by_kernels)
+    mac = sum(k.ks_mac.values())
     print(f"[{tag}] {what}, seed {SEED} on cuda: keygen, encrypt, rotate(1), multiply_relin, "
           f"rescale{' (twice), rotate' if twice else ''}, decrypts in {secs:.2f} s "
           f"(first call, keys included)")
@@ -594,21 +661,23 @@ def drive_counted(tag: str, what: str, params: dict, dnum=None, twice: bool = Fa
         if not e <= limit:
             raise RuntimeError(f"{what}: {name} fails its limit")
     print(f"[{tag}] kernel launches on this path: {launches}; by the kernels that ran: "
-          f"{by_kernels}; __global__ launches: {passes}")
+          f"{by_kernels}; __global__ launches: {passes}; MULTEVK kernel: {dict(k.ks_mac)}")
     large = "_large" if ntt_cuda.default_split(params["n"]) else ""
     if launches["fwd" + large] == 0 or launches["inv" + large] == 0:
         raise RuntimeError(f"{what} did not launch both kernels: {launches}")
-    return ctx, arrays, launches, by_kernels
+    if mac == 0:
+        raise RuntimeError(f"{what} launched no MULTEVK kernel (rfhe_ks_mac_kernel)")
+    return ctx, arrays, launches, by_kernels, mac
 
 
 def phase_main_path() -> tuple:
-    ctx, arrays, launches, by_kernels = drive_counted("main", "CKKS N=4096, 21+1 limbs", BENCH)
+    ctx, arrays, launches, by_kernels, mac = drive_counted("main", "CKKS N=4096, 21+1 limbs", BENCH)
     t0 = time.perf_counter()
     _, cpu_arrays, _ = run_path("cpu", BENCH)
     count = same_arrays(arrays, cpu_arrays, "N=4096 cuda vs cpu")
     print(f"[parity] {count} arrays ({', '.join(arrays)}) identical on cuda and cpu "
           f"(cpu run {time.perf_counter() - t0:.1f} s)")
-    return ctx, launches, by_kernels
+    return ctx, launches, by_kernels, mac
 
 
 def phase_large_per_limb() -> tuple:
@@ -616,7 +685,7 @@ def phase_large_per_limb() -> tuple:
     butterflies over (21, 22, 65536) takes minutes, so the full path is held
     against the plain versions on the card, array by array, and the CPU
     comparison runs at a shallower chain of the same ring."""
-    ctx, arrays, launches, by_kernels = drive_counted(
+    ctx, arrays, launches, by_kernels, mac = drive_counted(
         "large", "CKKS N=65536, 21+1 limbs, per-limb digits", LARGE)
     ntt_cuda.KERNELS.reset_counts()
     t0 = time.perf_counter()
@@ -634,11 +703,11 @@ def phase_large_per_limb() -> tuple:
     count = same_arrays(shallow_cuda, shallow_cpu, "N=65536 shallow chain, cuda vs cpu")
     print(f"[large] CPU comparison at a shallower chain of the same ring (N=65536, 3+1 limbs): "
           f"{count} arrays identical on cuda and cpu ({time.perf_counter() - t0:.1f} s)")
-    return ctx, launches, by_kernels
+    return ctx, launches, by_kernels, mac
 
 
 def phase_large_grouped() -> tuple:
-    ctx, arrays, launches, by_kernels = drive_counted(
+    ctx, arrays, launches, by_kernels, mac = drive_counted(
         "grouped", f"CKKS N=65536, 21+7 limbs, dnum={DNUM}", LARGE, DNUM, twice=True)
     shape = tuple(ctx.rlk.b.shape)
     if shape != (DNUM, 28, 65536):
@@ -648,7 +717,7 @@ def phase_large_grouped() -> tuple:
     count = same_arrays(arrays, cpu_arrays, "N=65536 dnum=3 cuda vs cpu")
     print(f"[grouped] keys of shape {shape}; {count} arrays ({', '.join(arrays)}) identical on "
           f"cuda and cpu (cpu run {time.perf_counter() - t0:.1f} s)")
-    return ctx, launches, by_kernels
+    return ctx, launches, by_kernels, mac
 
 
 def phase_mid_rings() -> dict:
@@ -2342,7 +2411,8 @@ def phase_graphs(c: str, ctxs: dict, bgv: tuple, bfv: tuple) -> tuple:
 
 def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
                    scheme: dict, faults: dict, profiling: dict, validate: dict,
-                   demos: dict, sharded: dict, entries: dict, graphs: dict) -> list:
+                   demos: dict, sharded: dict, entries: dict, graphs: dict,
+                   ks_mac: dict, mac_launches: dict) -> list:
     """One record per kernel form at its path's keyswitch shape, in the form
     that shape takes by itself, with every other shape and form timed in this
     run under `other_shapes`.  `ms` is the device timer's reading, `paced_ms`
@@ -2355,7 +2425,10 @@ def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
     motivation demos (phase Q); `launches_sharded` is the limb-sharded CKKS
     paths' (phase R), `launches_entry` the headline's and the dry run's
     (phase S), `launches_graphs` the graphed and eager ops of phase T (each
-    NTT of a replay counted as one launch of its kernel)."""
+    NTT of a replay counted as one launch of its kernel).  Last, the MULTEVK
+    kernel's record at bsgs's keyswitch shape (phase 3b), its other shapes
+    under `other_shapes`, its launches on the N=4096 and the two N=65536
+    paths under `launches_paths`."""
     records = []
     for d in ("fwd", "inv"):
         for large, key in (("", "4096"), ("_large", "65536")):
@@ -2380,6 +2453,15 @@ def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
                             "timer": DEVICE_TIMER, "paced_ms": head["paced_ms"],
                             "shape": head["shape"], "form": head["form"],
                             "other_shapes": others})
+    head = ks_mac["bsgs"]
+    records.append({"name": "rfhe_ks_mac", "route": "cuda", "source": SOURCE,
+                    "replaces": "rfhe_tpu/fhe/keys.py:358 (keyswitch's mont_mul and _sum_digits)",
+                    "launches": sum(mac_launches.values()), "launches_paths": mac_launches,
+                    "max_abs_err": 0, "ms": head["ms"], "plain_ms": head["plain_ms"],
+                    "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                    "library_ms": None, "timer": DEVICE_TIMER, "paced_ms": head["paced_ms"],
+                    "shape": head["shape"],
+                    "other_shapes": [dict(v, of=name) for name, v in ks_mac.items() if v is not head]})
     return records
 
 
@@ -2387,12 +2469,13 @@ def main() -> None:
     c = phase_toolchain()
     phase_build()
     err = phase_kernels()
-    ctxs, launches = {}, dict.fromkeys(ntt_cuda.FORMS, 0)
+    ks_mac = phase_ks_mac(c)
+    ctxs, launches, mac_launches = {}, dict.fromkeys(ntt_cuda.FORMS, 0), {}
     by_kernels = dict.fromkeys(ntt_cuda.KERNEL_SETS, 0)
     paths = {"N=4096": phase_main_path, "N=65536": phase_large_per_limb,
              f"N=65536 dnum={DNUM}": phase_large_grouped}
     for name, phase in paths.items():
-        ctxs[name], path_launches, path_kernels = phase()
+        ctxs[name], path_launches, path_kernels, mac_launches[name] = phase()
         for form, count in path_launches.items():
             launches[form] += count
         for kernels, count in path_kernels.items():
@@ -2463,7 +2546,7 @@ def main() -> None:
         raise RuntimeError(f"kernels that no path launched: {launches}, {by_kernels}")
     print(json.dumps({"kernels": kernel_records(err, launches, times, protected, scheme, faults,
                                                 profiling, validate, demos, sharded,
-                                                entries, graphs)}))
+                                                entries, graphs, ks_mac, mac_launches)}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -34,8 +34,10 @@
 // The device functions of the large-ring section below (register rounds,
 // twiddle slots, exchanges, the closed-form slot) serve all kernels; the
 // one-block kernels follow the cluster kernels, whose shape they share.
-// Last comes `rfhe_span_mark`, no transform: trace/spans.py's one-thread
-// clock mark, kept here so that it builds and loads with the kernels.
+// Last come two kernels that are no transform, kept here so that they build
+// and load with the others: `rfhe_span_mark`, trace/spans.py's one-thread
+// clock mark, and `rfhe_ks_mac_kernel`, the keyswitch's key product and digit
+// sum (fhe/keys.py:multevk).
 
 #include <cstdint>
 #include <map>
@@ -1143,6 +1145,63 @@ __global__ void rfhe_span_mark(int64_t* acc, uint64_t closes, uint64_t opens) {
   for (uint64_t m = opens; m; m &= m - 1) acc[3 * (__ffsll((long long)m) - 1)] = (int64_t)now;
 }
 
+// MULTEVK, the keyswitch's key product and digit sum (fhe/keys.py:multevk;
+// the JAX package leaves it to XLA, `rfhe_tpu/fhe/keys.py:keyswitch`, so it
+// replaces no TPU kernel).  For both key components p in {b, a}:
+//   out[p, i, c] = Σ_d dig[d, i, c] · key_p[digits[d], rows[i], c] · R⁻¹  mod q_i
+// with R = 2^32, for digit words below 2^32 and key words below q_i (the
+// domain of ops/modarith.py:mont_mul, whose words these are).  Bytes bind:
+// at 21 digits × 22 limbs × 65536 the digits and both keys are read once,
+// 727 MB, and the accumulators written once, 23 MB: 0.224 ms at 3.35 TB/s,
+// against 0.02 ms of 32-bit operations (two REDCs of about six per digit
+// word) at the card's integer rate.  So every word is moved once: the key
+// rows are read in place through the table (no gathered copy), each digit
+// word serves both components, a thread loads 16 bytes of each tensor per
+// digit (two coefficients of one limb) and walks the digits with four
+// iterations' loads in flight.  The products are 32-bit: a Montgomery REDC
+// with -q⁻¹ mod 2^32 gives a word below 2q congruent to d·k·R⁻¹, the digit
+// sum stays in a 64-bit register (below n_used · 2^32) and one final `%`
+// makes it canonical, which is bit for bit the plain version's
+// `(d·k % q)·R⁻¹ % q` summed mod q.
+// grid (⌈n/512⌉, n_lim), 256 threads; tab (uint32): rows (n_lim), q (n_lim),
+// -q⁻¹ mod 2^32 (n_lim), then the key digit of each digit (n_used).
+constexpr int kMacThreads = 256;
+
+__device__ __forceinline__ uint64_t mont_redc(uint64_t d, uint64_t k, uint32_t q,
+                                              uint32_t q_neg_inv) {
+  const uint64_t p = (uint64_t)(uint32_t)d * (uint32_t)k;  // < 2^32·q
+  const uint32_t m = (uint32_t)p * q_neg_inv;              // p + m·q ≡ 0 mod 2^32
+  return (p + (uint64_t)m * q) >> 32;                      // < 2q (the sum < 2^64)
+}
+
+__global__ void __launch_bounds__(kMacThreads)
+rfhe_ks_mac_kernel(const ulonglong2* __restrict__ dig, const ulonglong2* __restrict__ kb,
+                   const ulonglong2* __restrict__ ka, const uint32_t* __restrict__ tab,
+                   ulonglong2* __restrict__ out, int n_used, int n_lim, int key_rows,
+                   int pairs) {
+  const int i = blockIdx.y;
+  const int c = blockIdx.x * kMacThreads + threadIdx.x;  // coefficients 2c, 2c + 1
+  if (c >= pairs) return;
+  const uint32_t q = tab[n_lim + i], q_neg_inv = tab[2 * n_lim + i];
+  const uint32_t* digits = tab + 3 * n_lim;
+  const size_t dig_step = (size_t)n_lim * pairs, key_step = (size_t)key_rows * pairs;
+  const size_t key_at = (size_t)tab[i] * pairs + c;
+  const ulonglong2* x_at = dig + (size_t)i * pairs + c;
+  uint64_t b0 = 0, b1 = 0, a0 = 0, a1 = 0;
+#pragma unroll 4
+  for (int d = 0; d < n_used; ++d) {
+    const ulonglong2 x = x_at[d * dig_step];
+    const size_t k = digits[d] * key_step + key_at;
+    const ulonglong2 u = kb[k], v = ka[k];
+    b0 += mont_redc(x.x, u.x, q, q_neg_inv);
+    b1 += mont_redc(x.y, u.y, q, q_neg_inv);
+    a0 += mont_redc(x.x, v.x, q, q_neg_inv);
+    a1 += mont_redc(x.y, v.y, q, q_neg_inv);
+  }
+  out[(size_t)i * pairs + c] = make_ulonglong2(b0 % q, b1 % q);
+  out[((size_t)n_lim + i) * pairs + c] = make_ulonglong2(a0 % q, a1 % q);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1213,6 +1272,21 @@ int rfhe_ntt_inv_cluster(const void* y, void* x, const void* tw, const void* con
 // One span boundary (rfhe_span_mark above): one thread on `stream`.
 int rfhe_span_mark_launch(void* acc, uint64_t closes, uint64_t opens, void* stream) {
   rfhe_span_mark<<<1, 1, 0, (cudaStream_t)stream>>>((int64_t*)acc, closes, opens);
+  return (int)cudaGetLastError();
+}
+
+// MULTEVK (rfhe_ks_mac_kernel above): dig (n_used, n_lim, n), kb and ka
+// (key digits, key_rows, n), out (2, n_lim, n), all int64 and 16-byte
+// aligned; n even.
+int rfhe_ks_mac(const void* dig, const void* kb, const void* ka, const void* tab, void* out,
+                int n_used, int n_lim, int key_rows, int n, void* stream) {
+  if (n <= 0 || n % 2 != 0 || n_lim <= 0 || n_lim > 65535 || n_used < 0 || key_rows <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int pairs = n / 2;
+  const dim3 grid((pairs + kMacThreads - 1) / kMacThreads, n_lim);
+  rfhe_ks_mac_kernel<<<grid, kMacThreads, 0, (cudaStream_t)stream>>>(
+      (const ulonglong2*)dig, (const ulonglong2*)kb, (const ulonglong2*)ka,
+      (const uint32_t*)tab, (ulonglong2*)out, n_used, n_lim, key_rows, pairs);
   return (int)cudaGetLastError();
 }
 

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from ..device import to_torch
-from ..numth import mod_inv, shoup_precompute
+from ..numth import montgomery_constants, mod_inv, shoup_precompute
+from ..ops import ntt_cuda
 from ..ops.modarith import add_mod, mont_mul, mul_mod, mul_mod_shoup, sub_mod
 from ..trace import spans
 from ..utils.jitcache import by_reference
@@ -296,8 +297,8 @@ def keyswitch(d_coeff: torch.Tensor, ksk: KeySwitchKey, level: int,
     ones only, from the whole d.
 
     Traced (`trace/spans.py`), the keyswitch is the span KEYSWITCH and its
-    phases BASECONV (the digits), NTT, MULTEVK (the key's rows, the MAC and
-    the digit sum) and MODDOWN."""
+    phases BASECONV (the digits), NTT, MULTEVK (`multevk`: the MAC against
+    the key's rows and the digit sum) and MODDOWN."""
     L = n_ct_limbs
     sp_idx = list(range(L, len(ctx.moduli)))
     keep = list(range(level + 1)) if targets is None else list(targets)
@@ -308,18 +309,53 @@ def keyswitch(d_coeff: torch.Tensor, ksk: KeySwitchKey, level: int,
         sub_plan = ctx.plan.take(lim)
         dig_ntt = sub_plan.fwd(dig)
         phase("MULTEVK")
-        key_idx = ctx.index(ksk.rows(lim))
-        used_idx = ctx.index(used)
-        q, rinv = sub_plan.qb(1), sub_plan.rinvb(1)
-        acc = []
-        for k in (ksk.b, ksk.a):
-            kk = k.index_select(0, used_idx).index_select(1, key_idx)
-            acc.append(_sum_digits(mont_mul(dig_ntt, kk, q, rinv), q))
-        out = torch.stack(acc)
+        out = multevk(dig_ntt, ksk, used, lim, ctx)
         phase("MODDOWN")
         for k_i in range(len(sp_idx) - 1, -1, -1):
             out = drop_limb(out, sp_idx[k_i], keep + sp_idx[:k_i], ctx, t)
     return out[0], out[1]
+
+
+def multevk(dig_ntt: torch.Tensor, ksk: KeySwitchKey, used: Sequence[int],
+            lim: Sequence[int], ctx: RnsContext) -> torch.Tensor:
+    """MULTEVK: the digits (n_used, len(lim), N) in the NTT domain against
+    the key's rows, summed over the digits, for b then a: (2, len(lim), N),
+    out[p, i] = Σ_d dig_ntt[d, i]·key_p[used[d], row of lim[i]]·R⁻¹ mod q_i.
+    On the card one launch of `rfhe_ks_mac_kernel` (`ntt_cuda.ks_mac`), which
+    reads the key's rows in place; on the CPU `multevk_plain`.  Both give the
+    same words for digit words below 2^32 and key words below q (the keys'
+    are), `mont_mul`'s domain."""
+    if dig_ntt.device.type != "cuda":
+        return multevk_plain(dig_ntt, ksk, used, lim, ctx)
+    rows = ksk.rows(lim)
+    if max(used) >= ksk.b.shape[0]:
+        raise ValueError(f"digits {list(used)} of a key with {ksk.b.shape[0]}")
+    table = ctx.cached(("ks_mac", tuple(used), tuple(rows), tuple(lim)),
+                       lambda: _mac_table(ctx, used, rows, lim))
+    return ntt_cuda.ks_mac(dig_ntt, ksk.b, ksk.a, table)
+
+
+def multevk_plain(dig_ntt: torch.Tensor, ksk: KeySwitchKey, used: Sequence[int],
+                  lim: Sequence[int], ctx: RnsContext) -> torch.Tensor:
+    """`multevk` in plain PyTorch: the key's rows gathered, `mont_mul`, then
+    `_sum_digits`, per key component."""
+    key_idx, used_idx = ctx.index(ksk.rows(lim)), ctx.index(used)
+    sub_plan = ctx.plan.take(lim)
+    q, rinv = sub_plan.qb(1), sub_plan.rinvb(1)
+    return torch.stack([
+        _sum_digits(mont_mul(dig_ntt, k.index_select(0, used_idx).index_select(1, key_idx),
+                             q, rinv), q)
+        for k in (ksk.b, ksk.a)])
+
+
+def _mac_table(ctx: RnsContext, used: Sequence[int], rows: Sequence[int],
+               lim: Sequence[int]) -> torch.Tensor:
+    """`ntt_cuda.ks_mac`'s table on the device: the key row of each limb of
+    `lim`, its q, -q⁻¹ mod 2^32, then the key digit of each digit."""
+    moduli = [ctx.moduli[l] for l in lim]
+    words = (list(rows) + moduli + [montgomery_constants(q)[1] for q in moduli]
+             + list(used))
+    return torch.from_numpy(np.array(words, dtype=np.uint32).view(np.int32)).to(ctx.device)
 
 
 def _sum_digits(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

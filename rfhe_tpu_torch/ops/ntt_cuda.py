@@ -45,6 +45,12 @@ takes its counts back and every replay adds them (`KERNELS.snapshot`,
 ran.  This module also stands where the reference's `utils/compilecache.py`
 does: the kernel library is built once per checkout and source, into
 `build/rfhe_tpu_torch/`.
+
+The library also holds two kernels that are no transform: `rfhe_span_mark`
+(trace/spans.py) and `rfhe_ks_mac_kernel`, the keyswitch's key product and
+digit sum (`ks_mac`, called by `fhe/keys.py:multevk`).  `KERNELS.ks_mac` counts
+the MAC's launches by (digits, limbs, n) the same replay-aware way, apart from
+the transforms' counters (which the NTT metrics read).
 """
 from __future__ import annotations
 
@@ -262,6 +268,7 @@ class NttKernels:
         self.passes = dict.fromkeys(FORMS, 0)     # __global__ launches
         self.by_kernels = dict.fromkeys(KERNEL_SETS, 0)   # transforms, by the kernels that ran
         self.by_shape: dict = {}                  # transforms, by (form, batch, L, n)
+        self.ks_mac: dict = {}                    # rfhe_ks_mac_kernel, by (n_used, n_lim, n)
         self._lib: Optional[ctypes.CDLL] = None
 
     def reset_counts(self) -> None:
@@ -269,10 +276,11 @@ class NttKernels:
         self.passes = dict.fromkeys(FORMS, 0)
         self.by_kernels = dict.fromkeys(KERNEL_SETS, 0)
         self.by_shape = {}
+        self.ks_mac = {}
 
     # A graph capture runs no kernel but makes the counts of its launches; it
     # takes them back, and every replay adds them (utils/jitcache.py).
-    _COUNTERS = ("launches", "passes", "by_kernels", "by_shape")
+    _COUNTERS = ("launches", "passes", "by_kernels", "by_shape", "ks_mac")
 
     def snapshot(self) -> dict:
         return {name: dict(getattr(self, name)) for name in self._COUNTERS}
@@ -320,6 +328,7 @@ class NttKernels:
                 "rfhe_ntt_fwd_cluster": [ptr] * 5 + [num] * 7 + [ptr],
                 "rfhe_ntt_inv_cluster": [ptr] * 5 + [num] * 7 + [ptr],
                 "rfhe_span_mark_launch": [ptr, ctypes.c_uint64, ctypes.c_uint64, ptr],
+                "rfhe_ks_mac": [ptr] * 5 + [num] * 4 + [ptr],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
@@ -380,3 +389,41 @@ def fwd(x: torch.Tensor, plan, split: Split = None) -> torch.Tensor:
 def inv(y: torch.Tensor, plan, split: Split = None) -> torch.Tensor:
     """Inverse NTT kernel (replaces ntt_fused.py:_inv_kernel)."""
     return KERNELS.launch(True, y, plan, split)
+
+
+def ks_mac(dig: torch.Tensor, kb: torch.Tensor, ka: torch.Tensor,
+           table: torch.Tensor) -> torch.Tensor:
+    """MULTEVK's kernel: (2, n_lim, n) int64, out[p, i] = Σ_d dig[d, i] ·
+    key_p[key digit of d, key row of i] · 2^-32 mod q_i for p = b, a.  dig
+    (n_used, n_lim, n) words below 2^32; kb, ka (key digits, key rows, n)
+    words below their q, read in place; `table` int32 (uint32 bits): the key
+    row of each limb, each limb's q and -q^-1 mod 2^32, then the key digit of
+    each digit (`fhe/keys.py:_mac_table`).  Launches on the current stream,
+    counted in `KERNELS.ks_mac` by (n_used, n_lim, n)."""
+    n_used, n_lim, n = dig.shape
+    for name, t in (("dig", dig), ("kb", kb), ("ka", ka), ("table", table)):
+        if t.device != dig.device or t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError(f"ks_mac: {name} must be contiguous on the card beside dig, "
+                             f"got {t.device}, contiguous={t.is_contiguous()}")
+    if (dig.dtype, kb.dtype, ka.dtype, table.dtype) != (torch.int64,) * 3 + (torch.int32,):
+        raise ValueError("ks_mac takes int64 digits and keys and an int32 table")
+    if any(t.data_ptr() % 16 for t in (dig, kb, ka)):
+        raise ValueError("ks_mac reads the digits and keys 16 bytes at a time: they must "
+                         "start on a 16-byte boundary")
+    if kb.shape != ka.shape or kb.dim() != 3 or kb.shape[2] != n or n % 2:
+        raise ValueError(f"ks_mac: keys {tuple(kb.shape)} / {tuple(ka.shape)} do not fit "
+                         f"digits {tuple(dig.shape)} (n even)")
+    if table.numel() != 3 * n_lim + n_used:
+        raise ValueError(f"ks_mac: table of {table.numel()} words for {n_lim} limbs and "
+                         f"{n_used} digits")
+    out = torch.empty((2, n_lim, n), dtype=torch.int64, device=dig.device)
+    with torch.cuda.device(dig.device):
+        stream = torch.cuda.current_stream(dig.device).cuda_stream
+        rc = KERNELS.lib().rfhe_ks_mac(dig.data_ptr(), kb.data_ptr(), ka.data_ptr(),
+                                       table.data_ptr(), out.data_ptr(), n_used, n_lim,
+                                       kb.shape[1], n, stream)
+    if rc != 0:
+        raise RuntimeError(f"rfhe_ks_mac launch failed: cudaError {rc} "
+                           f"(digits {tuple(dig.shape)}, keys {tuple(kb.shape)})")
+    KERNELS.ks_mac[n_used, n_lim, n] = KERNELS.ks_mac.get((n_used, n_lim, n), 0) + 1
+    return out

@@ -40,9 +40,9 @@ from typing import Dict, List, Optional
 import torch
 
 from ..fhe.ckks import Ciphertext, CkksContext
-from ..fhe.keys import _sum_digits, compute_digits, digit_basis
+from ..fhe.keys import compute_digits, digit_basis, multevk
 from ..fhe.rns import RnsPoly, lift_to_limbs, limb_plan
-from ..ops.modarith import add_mod, mont_mul, mul_mod_shoup, sub_mod
+from ..ops.modarith import add_mod, mul_mod_shoup, sub_mod
 from ..ops.ntt_pease import negacyclic_intt, negacyclic_ntt
 from ..utils.jitcache import HoistedJit, hoisted_jit
 from .markers import TraceCollector, synchronizer
@@ -127,14 +127,8 @@ class ProfiledRotation:
             with col.kernel("NTT", sync=dev):
                 dig_ntt = self._jit(("ntt", level), lambda x: negacyclic_ntt(x, sub_plan))(dig)
             with col.kernel("MULTEVK", sync=dev):
-                def mac(dn, k):
-                    lim_idx, used_idx = ctx.index(lim), ctx.index(used)
-                    q, rinv = sub_plan.qb(1), sub_plan.rinvb(1)
-                    return torch.stack([
-                        _sum_digits(mont_mul(dn, kk.index_select(0, used_idx)
-                                             .index_select(1, lim_idx), q, rinv), q)
-                        for kk in (k.b, k.a)])
-                acc = self._jit(("mac", level), mac)(dig_ntt, ksk)
+                acc = self._jit(("mac", level), lambda dn, k: multevk(
+                    dn, k, used, lim, ctx))(dig_ntt, ksk)
             with col.kernel("MODDOWN", sync=dev):
                 for k_i in range(len(sp_idx) - 1, -1, -1):
                     acc = self._drop_limb(acc, sp_idx[k_i], list(range(active)) + sp_idx[:k_i],

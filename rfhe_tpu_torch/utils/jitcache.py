@@ -99,50 +99,53 @@ def flatten(tree) -> Tuple[list, list, tuple]:
     """(tensors to copy, objects held by reference, tree definition).  The
     definition is hashable and holds every static value."""
     tensors, held = [], []
+    return tensors, held, _walk(tree, tensors, held)
 
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            tensors.append(x)
-            return ("T",)
-        if getattr(type(x), "_jit_by_reference", False):
-            held.append(x)
-            return ("H",)
-        if isinstance(x, (list, tuple)):
-            return (type(x).__name__, tuple(walk(v) for v in x))
-        if isinstance(x, dict):
-            keys = tuple(x)
-            return ("dict", keys, tuple(walk(x[k]) for k in keys))
-        if hasattr(x, "tree_flatten"):
-            children, aux = x.tree_flatten()
-            return ("node", type(x), aux, tuple(walk(c) for c in children))
-        if isinstance(x, _STATIC):
-            return ("static", x)
-        raise TypeError(f"hoisted_jit takes tensors, lists, tuples, dicts, scalars and "
-                        f"tree nodes, got {type(x).__name__}")
 
-    return tensors, held, walk(tree)
+# `_walk` and `_build` are module functions, not closures that call
+# themselves: such a closure is a reference cycle, one per call, that would
+# hold the op's arguments (or its outputs) until the cyclic collector's next
+# full pass, so device memory would grow with the number of calls.
+def _walk(x, tensors: list, held: list):
+    if isinstance(x, torch.Tensor):
+        tensors.append(x)
+        return ("T",)
+    if getattr(type(x), "_jit_by_reference", False):
+        held.append(x)
+        return ("H",)
+    if isinstance(x, (list, tuple)):
+        return (type(x).__name__, tuple(_walk(v, tensors, held) for v in x))
+    if isinstance(x, dict):
+        keys = tuple(x)
+        return ("dict", keys, tuple(_walk(x[k], tensors, held) for k in keys))
+    if hasattr(x, "tree_flatten"):
+        children, aux = x.tree_flatten()
+        return ("node", type(x), aux, tuple(_walk(c, tensors, held) for c in children))
+    if isinstance(x, _STATIC):
+        return ("static", x)
+    raise TypeError(f"hoisted_jit takes tensors, lists, tuples, dicts, scalars and "
+                    f"tree nodes, got {type(x).__name__}")
 
 
 def unflatten(tdef: tuple, tensors: list, held: list):
     """The tree of `tdef` with its tensors and held objects in order."""
-    it, ih = iter(tensors), iter(held)
+    return _build(tdef, iter(tensors), iter(held))
 
-    def build(d):
-        kind = d[0]
-        if kind == "T":
-            return next(it)
-        if kind == "H":
-            return next(ih)
-        if kind in ("list", "tuple"):
-            items = [build(c) for c in d[1]]
-            return items if kind == "list" else tuple(items)
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        if kind == "node":
-            return d[1].tree_unflatten(d[2], [build(c) for c in d[3]])
-        return d[1]
 
-    return build(tdef)
+def _build(d: tuple, it, ih):
+    kind = d[0]
+    if kind == "T":
+        return next(it)
+    if kind == "H":
+        return next(ih)
+    if kind in ("list", "tuple"):
+        items = [_build(c, it, ih) for c in d[1]]
+        return items if kind == "list" else tuple(items)
+    if kind == "dict":
+        return {k: _build(c, it, ih) for k, c in zip(d[1], d[2])}
+    if kind == "node":
+        return d[1].tree_unflatten(d[2], [_build(c, it, ih) for c in d[3]])
+    return d[1]
 
 
 def _tensor_sig(t: torch.Tensor) -> tuple:

@@ -651,3 +651,77 @@ def test_copy_counter_equals_the_shapes(cuda):
     assert spans.COUNTS.since(snap) == {
         "replays": 2, "captures": 0, "copies_in": 2 + 4, "copy_in_bytes": (2 + 4) * poly,
         "clones_out": 2 + 2, "clone_out_bytes": (2 + 2) * poly, "eager_on_card": 1}
+
+
+# ---------------------------------------------------------------------------
+# MULTEVK's kernel (csrc/ntt.cu:rfhe_ks_mac_kernel, fhe/keys.py:multevk)
+# ---------------------------------------------------------------------------
+
+_CKKS_BITS = [30] + [28] * 20          # bsgs's chain: 21 ciphertext primes
+# (ring, prime bit sizes, ciphertext limbs, dnum, level, targets, cut key, worst words)
+_MAC_CASES = {
+    "bsgs top level": (65536, _CKKS_BITS + [30], 21, None, 20, None, False, False),
+    "lower level": (65536, _CKKS_BITS + [30], 21, None, 9, None, False, False),
+    "dnum=3": (65536, _CKKS_BITS + [30] * 7, 21, 3, 20, None, False, False),
+    "BGV": (16384, [30] * 10 + [31], 10, None, 9, None, False, False),
+    "key cut to limbs": (65536, _CKKS_BITS + [30], 21, None, 20, list(range(11, 21)), True, False),
+    "worst words": (65536, _CKKS_BITS + [30], 21, None, 20, None, False, True),
+}
+
+
+@pytest.mark.parametrize("case", list(_MAC_CASES))
+def test_ks_mac_matches_plain(cuda, case):
+    """One launch of the MAC kernel equals the plain version bit for bit:
+    bsgs's 21 digits x 22 rows at N=65536, a lower level (the row table
+    gathers the special row), dnum=3, BGV's 10 x 11 at N=16384, a key cut to
+    some limbs as a rank of the sharded evaluator holds it, and the worst
+    words (every key word q - 1, every digit word 2^32 - 1)."""
+    from rfhe_tpu_torch.fhe.keys import KeySwitchKey, digit_basis, multevk, multevk_plain
+    from rfhe_tpu_torch.fhe.params import make_prime_chain
+    from rfhe_tpu_torch.fhe.rns import RnsContext
+    n, bits, L, dnum, level, targets, cut, worst = _MAC_CASES[case]
+    ctx = RnsContext.make(n, make_prime_chain(n, bits), cuda)
+    _, used, lim = digit_basis(level, ctx, L, dnum, targets)
+    q = ctx.plan.q_arr[None, :, None]
+    shape = (L if dnum is None else dnum, ctx.L, n)
+    g = torch.Generator(device=cuda).manual_seed(n + len(lim))
+    if worst:
+        ksk = KeySwitchKey(b=(q - 1).expand(shape).contiguous(), a=(q - 2).expand(shape).contiguous())
+        dig = torch.full((len(used), len(lim), n), (1 << 32) - 1, device=cuda)
+    else:
+        key = lambda: torch.randint(0, 1 << 62, shape, device=cuda, generator=g) % q
+        ksk = KeySwitchKey(b=key(), a=key())
+        dig = torch.randint(0, 1 << 32, (len(used), len(lim), n), device=cuda, generator=g)
+    if cut:
+        ksk = ksk.cut(targets + list(range(L, ctx.L)))
+    before = ntt_cuda.KERNELS.snapshot()
+    got = multevk(dig, ksk, used, lim, ctx)
+    assert ntt_cuda.KERNELS.since(before)["ks_mac"] == {(len(used), len(lim), n): 1}
+    assert torch.equal(got, multevk_plain(dig, ksk, used, lim, ctx))
+
+
+def test_ks_mac_counts_one_launch_per_rotation_replay(cuda):
+    """A graphed N=65536 rotation launches the MAC kernel once: the first
+    call's eager warm-up counts one, its capture none, and every replay adds
+    exactly one, as the eager op does; the MAC is counted in `ks_mac` only,
+    never by shape beside the transforms."""
+    import numpy as np
+    from rfhe_tpu_torch.fhe import CkksContext, CkksParams
+    from rfhe_tpu_torch.utils.jitcache import eager
+    ctx = CkksContext(CkksParams.make(n=65536, levels=3), seed=5, device=cuda)
+    ct = ctx.encrypt(*ctx.encode(np.random.default_rng(5).uniform(-1, 1, 32768) + 0j))
+    ctx.galois_key(ctx.rotation_galois_element(1))
+    k = ntt_cuda.KERNELS
+    before = k.snapshot()
+    with eager():
+        want = ctx.rotate(ct, 1)
+    counts = k.since(before)
+    assert sum(counts["ks_mac"].values()) == 1
+    assert all(s[0] in ntt_cuda.FORMS for s in counts["by_shape"])
+    for _ in range(3):                      # capture, then two replays
+        before = k.snapshot()
+        got = ctx.rotate(ct, 1)
+        assert k.since(before) == counts
+        assert all(torch.equal(x.data, y.data) for x, y in zip(got.c, want.c))
+    (jit,) = [j for key, j in ctx._jits.items() if key[0] == "galois"]
+    assert len(jit.graphs) == 1 and jit.graphs[0].replays == 2

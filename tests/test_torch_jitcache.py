@@ -86,6 +86,27 @@ def test_keys_are_held_by_reference():
     assert jitcache.signature((ct, k1)) != jitcache.signature((ct, k2))
 
 
+def test_calls_leave_no_reference_cycles():
+    """Flattening and rebuilding an argument tree, and a call through the
+    cache, make no reference cycle: an op's arguments and results are freed
+    when the caller drops them, not at the cyclic collector's next full pass
+    (on a card, device memory would grow with the number of calls)."""
+    import gc
+    b, a = torch.zeros(2, 3, 64, dtype=torch.int64), torch.ones(2, 3, 64, dtype=torch.int64)
+    ct, key = _ct((3, 64), 2.0 ** 26, 1, 0, ref=False), KeySwitchKey(b=b, a=a)
+    op = jitcache.HoistedJit(lambda c, k: (c.c[0].data + k.b[0], [c]))
+    gc.collect()
+    gc.disable()
+    try:
+        for _ in range(3):
+            tensors, held, tdef = jitcache.flatten((ct, [ct.c[0].data], {"k": key}))
+            jitcache.unflatten(tdef, tensors, held)
+            op(ct, key)
+        assert gc.collect() == 0
+    finally:
+        gc.enable()
+
+
 def _drive_batched(ctx):
     x = np.random.default_rng(4).integers(0, ctx.t, (2, ctx.params.n // 2))
     ct = ctx.encrypt(ctx.encode(x))

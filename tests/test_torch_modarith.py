@@ -16,6 +16,7 @@ Q30 = numth.find_ntt_prime(4096, 30)
 Q31 = numth.find_ntt_prime(4096, 31)
 Q20 = numth.find_ntt_prime(256, 20)
 MODULI = [Q30, Q31, Q20]
+Q30_TOP, Q31_TOP = 1073741789, 2147483647     # the primes just under 2^30 and 2^31
 
 
 def _residues(q, n=1000, seed=0):
@@ -89,3 +90,96 @@ def test_per_limb_moduli_broadcast():
         u32.mont_mul(jnp.asarray(a), jnp.asarray(b), jnp.asarray(qc), jnp.asarray(qinvc)))
     _eq(modarith.add_mod(_t(a), _t(b), qt), u32.add_mod(jnp.asarray(a), jnp.asarray(b), jnp.asarray(qc)))
     _eq(modarith.sub_mod(_t(a), _t(b), qt), u32.sub_mod(jnp.asarray(a), jnp.asarray(b), jnp.asarray(qc)))
+
+
+# ---------------------------------------------------------------------------
+# MULTEVK: the word arithmetic of csrc/ntt.cu:rfhe_ks_mac_kernel
+# ---------------------------------------------------------------------------
+
+M32 = np.uint64(0xFFFFFFFF)
+
+
+def _ks_mac_words(dig, kb, ka, table):
+    """The kernel's words, emulated in numpy uint64 from its table: per
+    product a Montgomery REDC with -q^-1 mod 2^32 (a word below 2q), the
+    digit sum in 64 bits, one final reduction mod q.  dig (n_used, n_lim, N)
+    below 2^32; kb, ka (key digits, key rows, N) below their q."""
+    n_used, n_lim, _ = dig.shape
+    tab = np.asarray(table).view(np.uint32).astype(np.uint64)
+    rows, q, q_neg_inv, digits = (tab[:n_lim], tab[n_lim:2 * n_lim, None],
+                                  tab[2 * n_lim:3 * n_lim, None], tab[3 * n_lim:])
+    assert len(digits) == n_used
+    out = []
+    for key in (kb, ka):
+        acc = np.zeros(dig.shape[1:], dtype=np.uint64)
+        for d in range(n_used):
+            p = (dig[d].astype(np.uint64) & M32) * key[digits[d]][rows].astype(np.uint64)
+            m = ((p & M32) * q_neg_inv) & M32
+            assert (p < (q << np.uint64(32))).all() and (m * q < (q << np.uint64(32))).all()
+            t = (p + m * q) >> np.uint64(32)                 # p + m·q < 2^64: no wrap
+            assert (t < 2 * q).all()
+            acc += t
+        assert (acc < np.uint64(n_used) * 2 * q + 1).all()  # no wrap in the 64-bit sum
+        out.append(acc % q)
+    return np.stack(out).astype(np.int64)
+
+
+def _mac_case(case):
+    """(dig, ksk, used, lim, ctx) at N = 256 for the wrapper's cases: every
+    digit at the top level, or a lower level of grouped digits against a
+    key cut to some limbs as a rank of the sharded evaluator holds it."""
+    from rfhe_tpu_torch.fhe.keys import KeySwitchKey, digit_basis
+    from rfhe_tpu_torch.fhe.rns import RnsContext
+    from rfhe_tpu_torch.numth import find_ntt_primes
+    L, n = 5, 256
+    ctx = RnsContext.make(n, find_ntt_primes(n, 30, 3) + find_ntt_primes(n, 31, 3), "cpu")
+    dnum, level, targets = (None, L - 1, None) if case == "top" else (2, 3, [1, 2])
+    _, used, lim = digit_basis(level, ctx, L, dnum, targets)
+    rng = np.random.default_rng(len(case))
+    q = np.array(ctx.moduli, dtype=np.uint64)[None, :, None]
+    keys = [_t(rng.integers(0, 1 << 62, (L if dnum is None else dnum, ctx.L, n),
+                            dtype=np.uint64) % q) for _ in range(2)]
+    ksk = KeySwitchKey(b=keys[0], a=keys[1])
+    if case != "top":
+        ksk = ksk.cut([0, 1, 2, 3] + list(range(L, ctx.L)))
+    dig = _t(rng.integers(0, 1 << 32, (len(used), len(lim), n), dtype=np.uint64))
+    return dig, ksk, used, lim, ctx
+
+
+@pytest.mark.parametrize("case", [(Q30_TOP, 21), (Q30_TOP, 64), (Q31_TOP, 21), (Q31_TOP, 64),
+                                  "top", "cut key, lower level, dnum=2"],
+                         ids=["q30-21", "q30-64", "q31-21", "q31-64", "wrapper-top",
+                              "wrapper-cut-key"])
+def test_ks_mac_words(case):
+    """The MAC kernel's word arithmetic (`_ks_mac_words`) equals
+    `_sum_digits(mont_mul(...))` at the worst words (digits 2^32 - 1, keys
+    q - 1) for q just under 2^30 and 2^31 at 21 and 64 digits; and at
+    N = 256 the wrapper's CPU path (`multevk`), today's formula written out
+    and the emulation from the wrapper's own table agree."""
+    from rfhe_tpu_torch.fhe import keys
+    if isinstance(case, tuple):
+        q, n_used = case
+        rng = np.random.default_rng(n_used)
+        dig = rng.integers(0, 1 << 32, (n_used, 1, 256), dtype=np.uint64)
+        kb, ka = (rng.integers(0, q, (n_used, 1, 256), dtype=np.uint64) for _ in range(2))
+        dig[:, :, :128], kb[:, :, :128], ka[:, :, ::2] = (1 << 32) - 1, q - 1, q - 1
+        table = np.array([0, q, numth.montgomery_constants(q, 32)[1], *range(n_used)],
+                         dtype=np.uint32)
+        rinv = numth.mod_inv((1 << 32) % q, q)
+        want = [keys._sum_digits(modarith.mont_mul(_t(dig), _t(k), q, rinv), q) for k in (kb, ka)]
+        np.testing.assert_array_equal(_ks_mac_words(dig, kb, ka, table),
+                                      torch.stack(want).numpy())
+        return
+    dig, ksk, used, lim, ctx = _mac_case(case)
+    got = keys.multevk(dig, ksk, used, lim, ctx)
+    key_idx, used_idx = ctx.index(ksk.rows(lim)), ctx.index(used)
+    sub_plan = ctx.plan.take(lim)
+    q, rinv = sub_plan.qb(1), sub_plan.rinvb(1)
+    today = torch.stack([
+        keys._sum_digits(modarith.mont_mul(dig, k.index_select(0, used_idx)
+                                           .index_select(1, key_idx), q, rinv), q)
+        for k in (ksk.b, ksk.a)])
+    assert torch.equal(got, today) and got.shape == (2, len(lim), ctx.n)
+    table = keys._mac_table(ctx, used, ksk.rows(lim), lim)
+    np.testing.assert_array_equal(
+        _ks_mac_words(dig.numpy(), ksk.b.numpy(), ksk.a.numpy(), table.numpy()), got.numpy())
