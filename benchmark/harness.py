@@ -12,6 +12,11 @@ set i mod pool, the client synchronises (and, in a protected circuit, reads
 its flags), then starts circuit i + 1, until `seconds` have passed.  After
 the window, outputs sampled from the seed are decrypted by the reference
 and judged; the program's state is freed first.
+
+A traced run also turns the program's spans on (`program.spans()`) before
+the program is built, so that the warm-up captures its graphs with the
+spans' marks, and reads the spans and counters over the window.  An
+untraced run never turns them on.
 """
 from __future__ import annotations
 
@@ -42,13 +47,17 @@ TRACE_SECONDS = 5.0
 
 @dataclass
 class Run:
-    """What the end-to-end readers read; `trace` is the traced run's."""
+    """What the end-to-end readers read; `trace`, `spans` (the program's
+    `spans.since`, by span name) and `counters` (`spans.COUNTS.since`) are
+    the traced run's, over the window."""
     setup_s: float
     starts: List[float]
     ends: List[float]
     window_s: float
     peak_bytes: int
     trace: Optional[tracing.Trace] = None
+    spans: Optional[dict] = None
+    counters: Optional[dict] = None
 
 
 def load_json(path: Path) -> dict:
@@ -122,6 +131,9 @@ def run_cell(parts: tuple, seed: int, seconds: float, traced: bool, device,
     basis = scheme.Basis.make(dep, dev)
     keys = scheme.Keys(basis, gen, dep["sigma"])
     circ = circuits.make(mix, dep, cfg["control"] if control else None, keys, gen, dev)
+    recorder = program.spans() if traced else None
+    if recorder is not None:
+        recorder.enable(dev)
     _sync(dev)
     marks.append(("device and secret key", time.perf_counter()))
     ctx = program.build(dep, keys, circ.galois(), circ.relin, seed, dev)
@@ -150,6 +162,8 @@ def run_cell(parts: tuple, seed: int, seconds: float, traced: bool, device,
     if traced:
         from rfhe_tpu_torch.ops.ntt_cuda import KERNELS
         snap = KERNELS.snapshot()
+        if recorder is not None:
+            span_snap, count_snap = recorder.snapshot(), recorder.COUNTS.snapshot()
         profiler = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
         seconds = min(seconds, TRACE_SECONDS)
     with profiler as prof:
@@ -157,6 +171,8 @@ def run_cell(parts: tuple, seed: int, seconds: float, traced: bool, device,
         i = 0
         while True:
             t0, n0 = time.perf_counter(), time.time_ns()
+            if recorder is not None:
+                recorder.request(i)
             out, ok = circ.run(i)
             n1 = time.time_ns()
             _sync(dev)
@@ -183,13 +199,21 @@ def run_cell(parts: tuple, seed: int, seconds: float, traced: bool, device,
         print(f"[mem] held {held}, peak after the warm-up {warm_peak}, after the window "
               f"{run.peak_bytes}, reserved {torch.cuda.max_memory_reserved(dev)}", file=sys.stderr)
     if traced:
+        host_spans = []
+        if recorder is not None:
+            run.spans, run.counters = recorder.since(span_snap), recorder.COUNTS.since(count_snap)
+            host_spans = recorder.records(span_snap)
+            recorder.request(None)
+            recorder.disable()
         t_read = time.perf_counter()
         recs = tracing.records(prof)
         t_col = time.perf_counter()
-        run.trace = tracing.collect(recs, (w0_ns, w1_ns), spans, KERNELS.since(snap)["by_shape"])
+        run.trace = tracing.collect(recs, (w0_ns, w1_ns), spans, KERNELS.since(snap)["by_shape"],
+                                    host_spans)
         print(f"[trace] stop {t_read - stop:.1f} s, records {len(recs)} in {t_col - t_read:.1f} s, "
-              f"collect {time.perf_counter() - t_col:.1f} s", file=sys.stderr)
-        del prof, recs
+              f"collect {time.perf_counter() - t_col:.1f} s, span marks set apart "
+              f"{run.trace.marks}", file=sys.stderr)
+        del prof, recs, host_spans
 
     extra = {}
     if mix.get("protected"):

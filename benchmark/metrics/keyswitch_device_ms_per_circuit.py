@@ -1,0 +1,10 @@
+"""Device ms per circuit in the program's span KEYSWITCH: the keyswitch
+(`fhe/keys.py:keyswitch`), its four phases together, timed on the card by the span's marks
+(`rfhe_tpu_torch/trace/spans.py`), traced run."""
+
+
+def read(run):
+    e = (run.spans or {}).get("KEYSWITCH")
+    if not e or not e["device_ns"] or not run.ends:
+        return None
+    return e["device_ns"] / len(run.ends) * 1e-6

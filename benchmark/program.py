@@ -5,8 +5,10 @@ over through the program's public constructors and key slots: a
 `CkksContext` takes them through `load_keys` (numpy uint32, the layout its
 docstring gives); a `BgvContext` has no `load_keys`, so its `sk`, `pk`,
 `rlk` and Galois keys are set as the objects its key generation would make.
+Both take the configuration's keyswitch layout (`Basis.dnum`).
 Ciphertexts and plaintexts built by the benchmark are wrapped in the
-program's `Ciphertext` and `RnsPoly`.
+program's `Ciphertext` and `RnsPoly`.  `spans()` is the program's span
+recorder, which the benchmark turns on in a traced run only.
 """
 from __future__ import annotations
 
@@ -38,12 +40,12 @@ def build(deployment: dict, keys, galois: Iterable[int], relin: bool, seed: int,
                                  q0_bits=deployment["q0_bits"],
                                  scale_bits=deployment["scale_bits"])
         ctx = CkksContext(params, special_bits=deployment["special_prime_bits"], seed=seed,
-                          dnum=None, device=device)
+                          dnum=basis.dnum, device=device)
     else:
         params = BgvParams.make(n=deployment["n"], levels=deployment["levels"],
                                 q_bits=deployment["q_bits"], t_bits=deployment["t_bits"])
         ctx = BgvContext(params, special_bits=deployment["special_prime_bits"], seed=seed,
-                         dnum=None, device=device)
+                         dnum=basis.dnum, device=device)
     if tuple(ctx.ctx.moduli) != basis.ct + basis.special or ctx.params.n != basis.n:
         raise ValueError(f"the program's basis {ctx.ctx.moduli} is not the configuration's "
                          f"{basis.ct + basis.special}")
@@ -68,6 +70,16 @@ def build(deployment: dict, keys, galois: Iterable[int], relin: bool, seed: int,
     ctx._galois = {g: KeySwitchKey(*keys.galois_key(g)) for g in galois}
     ctx._jits = {}
     return ctx
+
+
+def spans():
+    """The program's span recorder and counters (`rfhe_tpu_torch.trace.spans`),
+    or None for a program that has none."""
+    try:
+        from rfhe_tpu_torch.trace import spans as recorder
+    except ImportError:
+        return None
+    return recorder
 
 
 def protect(ctx) -> ProtectedBgv:

@@ -3,10 +3,14 @@
 The keys come out in the program's layout (the docstring of
 `rfhe_tpu_torch/fhe/keys.py`): the secret s ternary, its slots over every
 prime of the basis; a public key (b, a) = (t·e − a·s, a) over the
-ciphertext primes (t = 1 in CKKS); and for a key switching s' -> s with
-per-limb digits, one pair per ciphertext limb j over the whole basis,
+ciphertext primes (t = 1 in CKKS); and for a key switching s' -> s, one
+pair per digit group j over the whole basis,
 
-    b_j = t·e_j − a_j·s + [P·s' on limb j],   P the special primes' product.
+    b_j = t·e_j − a_j·s + [P·s' on the limbs of group j],
+
+P the special primes' product.  The configuration's `digits` sets the
+groups: "per_limb" is one limb a group over one special prime; an integer
+dnum is ⌈L/dnum⌉ contiguous limbs a group over as many special primes.
 
 Everything is drawn on the device from one `torch.Generator`, in a few large
 calls.  Decryption reads a ciphertext's slots back with `Tables.inv`, takes
@@ -26,20 +30,34 @@ import torch
 from .ntt import Tables, prime_chain, special_primes
 
 
+def dnum(deployment: dict) -> Optional[int]:
+    """The digit groups of a configuration's `digits`: None for "per_limb",
+    else the integer dnum ≥ 1."""
+    d = deployment["digits"]
+    if d == "per_limb":
+        return None
+    if type(d) is int and d >= 1:
+        return d
+    raise ValueError(f"digits {d!r}: \"per_limb\" or an integer dnum >= 1")
+
+
 @dataclass
 class Basis:
-    """The deployment's primes: ciphertext primes, special primes, t (BGV)."""
+    """The deployment's primes: ciphertext primes, special primes, t (BGV),
+    and the keyswitch's digit groups."""
     n: int
     ct: tuple
     special: tuple
     t: Optional[int]
     tables: Tables                  # ciphertext primes, then special primes
     t_tables: Optional[Tables]      # the plaintext prime t (BGV)
+    dnum: Optional[int]             # digit groups; None: per-limb digits
 
     @classmethod
     def make(cls, deployment: dict, device) -> "Basis":
         """From a configuration's `deployment` group."""
         n, levels = deployment["n"], deployment["levels"]
+        d = dnum(deployment)
         if deployment["scheme"] == "ckks":
             bits = [deployment["q0_bits"]] + [deployment["scale_bits"]] * levels
         else:
@@ -50,14 +68,20 @@ class Basis:
         if deployment["scheme"] == "bgv":
             t = prime_chain(n, [deployment["t_bits"]])[0]
             taken.append(t)
-        sp = special_primes(n, deployment["special_prime_bits"], 1, taken)
+        count = 1 if d is None else -(-len(ct) // d)
+        sp = special_primes(n, deployment["special_prime_bits"], count, taken)
         return cls(n=n, ct=tuple(ct), special=tuple(sp), t=t,
                    tables=Tables.make(n, ct + sp, device),
-                   t_tables=Tables.make(n, [t], device) if t else None)
+                   t_tables=Tables.make(n, [t], device) if t else None, dnum=d)
 
     @property
     def L(self) -> int:
         return len(self.ct)
+
+    def groups(self) -> list:
+        """The digit groups: contiguous runs of α = ⌈L/dnum⌉ limbs."""
+        alpha = 1 if self.dnum is None else -(-self.L // self.dnum)
+        return [list(range(j, min(j + alpha, self.L))) for j in range(0, self.L, alpha)]
 
     def level_tables(self, level: int) -> Tables:
         return self.tables.take(range(level + 1))
@@ -107,17 +131,19 @@ class Keys:
         self.pk_b = (e - ct.mont(a, self.s_slots[:basis.L])) % ct.q
 
     def switching_key(self, s_prime_slots: torch.Tensor):
-        """(b, a), each (L, L + S, n): per-limb digits, s' -> s."""
+        """(b, a), each (groups, L + S, n): one pair per digit group, s' -> s."""
         b_, tab = self.basis, self.basis.tables
-        L, n, dev = b_.L, b_.n, tab.q.device
-        a = uniform(self.gen, (L, len(tab.primes), n), tab)
-        e = tab.fwd(residues(self.nf * gaussian(self.gen, (L, n), dev, self.sigma), tab))
+        groups = b_.groups()
+        L, G, n, dev = b_.L, len(groups), b_.n, tab.q.device
+        a = uniform(self.gen, (G, len(tab.primes), n), tab)
+        e = tab.fwd(residues(self.nf * gaussian(self.gen, (G, n), dev, self.sigma), tab))
         b = (e - tab.mont(a, self.s_slots)) % tab.q
         del e
         P = math.prod(b_.special)
         p_mod = torch.tensor([P % q for q in b_.ct], device=dev)
-        j = torch.arange(L, device=dev)
-        b[j, j] = (b[j, j] + p_mod[:, None] * s_prime_slots[:L] % tab.q[:L]) % tab.q[:L]
+        j = torch.tensor([g for g, grp in enumerate(groups) for _ in grp], device=dev)
+        l = torch.arange(L, device=dev)             # limb l lies in group j[l]
+        b[j, l] = (b[j, l] + p_mod[:, None] * s_prime_slots[:L] % tab.q[:L]) % tab.q[:L]
         return b, a
 
     def galois_key(self, g: int):

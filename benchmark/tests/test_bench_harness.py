@@ -1,19 +1,27 @@
 """BENCHMARK.json against the files it names, cells found by name, the
-metric readers on synthetic records, the import guard and the missing card."""
+keyswitch layout a configuration states, the metric readers on synthetic
+records and spans, the traced run's spans, the import guard and the missing
+card."""
 import ast
+import contextlib
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
+import torch
 
 from benchmark import harness, trace as tracing, yardstick
+from benchmark.reference import scheme
 from benchmark.tests import tiny
+from rfhe_tpu_torch.trace import spans as program_spans
 
 ROOT = harness.ROOT
 BENCH = ROOT / "benchmark"
@@ -106,22 +114,24 @@ def test_a_new_config_mix_and_metric_are_found_without_an_edit(tmp_path):
     assert got["circuits_total"] == len(r.ends) and got["circuits_per_s"] > 0
 
 
+# Two circuits in a 1000 µs window: an NTT kernel (100 µs, overlapping a
+# residue kernel of 100 µs by 50), a copy of 50 µs and a fill of 40, so 760 µs
+# idle; the longest gap, 450 µs, opens while the client waits.
+_SYNTHETIC = [
+    ("cudaGraphLaunch", False, 20, 25), ("cudaMemcpyAsync", False, 30, 32),
+    ("cudaLaunchKernel", False, 510, 512), ("cudaStreamSynchronize", False, 240, 700),
+    ("void ntt_fwd_cluster_kernel(long const*)", True, 100, 200),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::remainder>",
+     True, 150, 250),
+    ("Memcpy DtoD (Device -> Device)", True, 700, 750),
+    ("void at::native::vectorized_elementwise_kernel<4, FillFunctor<long>>", True, 760, 800),
+    ("void ntt_inv_kernel<4>(long const*)", True, 2000, 2100),     # after the window
+]
+_SYNTHETIC_SPANS = [(10_000, 60_000, 480_000), (500_000, 600_000, 990_000)]
+
+
 def _synthetic_trace():
-    """Two circuits in a 1000 µs window: an NTT kernel (100 µs, overlapping
-    a residue kernel of 100 µs by 50), a copy of 50 µs and a fill of 40, so
-    760 µs idle; the longest gap, 450 µs, opens while the client waits."""
-    recs = [
-        ("cudaGraphLaunch", False, 20, 25), ("cudaMemcpyAsync", False, 30, 32),
-        ("cudaLaunchKernel", False, 510, 512), ("cudaStreamSynchronize", False, 240, 700),
-        ("void ntt_fwd_cluster_kernel(long const*)", True, 100, 200),
-        ("void at::native::vectorized_elementwise_kernel<4, at::native::remainder>",
-         True, 150, 250),
-        ("Memcpy DtoD (Device -> Device)", True, 700, 750),
-        ("void at::native::vectorized_elementwise_kernel<4, FillFunctor<long>>", True, 760, 800),
-        ("void ntt_inv_kernel<4>(long const*)", True, 2000, 2100),     # after the window
-    ]
-    spans = [(10_000, 60_000, 480_000), (500_000, 600_000, 990_000)]
-    return tracing.collect(recs, (0, 1_000_000), spans,
+    return tracing.collect(_SYNTHETIC, (0, 1_000_000), _SYNTHETIC_SPANS,
                            ntt_by_shape={("fwd_large", 1, 2, 65536): 3})
 
 
@@ -222,3 +232,141 @@ def test_a_cell_on_the_card():
     assert proc.returncode == 0, proc.stderr[-2000:]
     result = json.loads(proc.stdout.splitlines()[-1])
     assert result["correct"] and result["device"]["busy_s"] > 0
+
+
+# -- the keyswitch layout ------------------------------------------------------
+
+@pytest.mark.parametrize("name,digits,levels,groups", [
+    ("ckks_n65536_l21.bsgs_d64", 2, 3, [[0, 1], [2, 3]]),
+    ("ckks_n65536_l21.bsgs_d64", 2, 4, [[0, 1, 2], [3, 4]]),
+    ("bgv_n16384_l10.dotprod", 2, 3, [[0, 1], [2, 3]])])
+def test_grouped_digits_run_correct(name, digits, levels, groups):
+    """n = 256: L = 4 in groups of 2 limbs over 2 special primes, and L = 5
+    with a ragged last group (3 + 2 limbs over 3 special primes); keys the
+    program's contexts take."""
+    cut = tiny.parts(name)
+    cut[1]["deployment"].update(digits=digits, levels=levels)
+    basis = scheme.Basis.make(cut[1]["deployment"], "cpu")
+    assert basis.groups() == groups and len(basis.special) == len(groups[0])
+    correct, failed, checks, r = tiny.run(name, cut=cut)
+    assert correct and failed == 0, checks
+    assert checks["limb_mismatch"][0] == 0
+
+
+def _old_switching_key(keys, s_prime_slots):
+    """`Keys.switching_key` as it was with per-limb digits alone."""
+    b_, tab = keys.basis, keys.basis.tables
+    L, n, dev = b_.L, b_.n, tab.q.device
+    a = scheme.uniform(keys.gen, (L, len(tab.primes), n), tab)
+    e = tab.fwd(scheme.residues(keys.nf * scheme.gaussian(keys.gen, (L, n), dev, keys.sigma),
+                                tab))
+    b = (e - tab.mont(a, keys.s_slots)) % tab.q
+    P = math.prod(b_.special)
+    p_mod = torch.tensor([P % q for q in b_.ct], device=dev)
+    j = torch.arange(L, device=dev)
+    b[j, j] = (b[j, j] + p_mod[:, None] * s_prime_slots[:L] % tab.q[:L]) % tab.q[:L]
+    return b, a
+
+
+@pytest.mark.parametrize("config", ["ckks_n65536_l21", "bgv_n16384_l10"])
+def test_per_limb_keys_are_bit_identical_to_the_old_ones(config, monkeypatch):
+    dep = harness.load_json(harness.ROOT / f"benchmark/configs/{config}.json")["deployment"]
+    dep.update(tiny.TINY[dep["scheme"]])
+    assert dep["digits"] == "per_limb"
+    basis = scheme.Basis.make(dep, "cpu")
+    assert len(basis.special) == 1 and basis.groups() == [[j] for j in range(basis.L)]
+
+    def draw():
+        keys = scheme.Keys(basis, torch.Generator().manual_seed(2 ** 31 + 7), dep["sigma"])
+        return [keys.galois_key(5), keys.relin_key(), keys.galois_key(25), keys.encrypt(
+            scheme.residues(torch.arange(basis.n), basis.level_tables(basis.L - 1))[None],
+            basis.L - 1)]
+
+    new = draw()
+    monkeypatch.setattr(scheme.Keys, "switching_key", _old_switching_key)
+    old = draw()
+    for x, y in zip(new, old):
+        assert all(torch.equal(u, v) for u, v in zip(x, y))
+
+
+@pytest.mark.parametrize("digits", ["grouped", "3", 0, -2, 2.0, True, None])
+def test_an_unknown_digits_value_raises(digits):
+    dep = dict(tiny.parts("ckks_n65536_l21.bsgs_d64")[1]["deployment"], digits=digits)
+    with pytest.raises(ValueError, match=re.escape(repr(digits))):
+        scheme.Basis.make(dep, "cpu")
+
+
+# -- spans and counters --------------------------------------------------------
+
+def test_an_untraced_run_leaves_the_spans_off():
+    assert not program_spans.ENABLED
+    correct, _, checks, r = tiny.run("ckks_n65536_l21.bsgs_d64")
+    assert correct, checks
+    assert not program_spans.ENABLED and r.spans is None and r.counters is None
+
+
+def test_a_traced_run_reads_the_programs_spans(monkeypatch):
+    """The traced path on the CPU, the profiler left out (it traces the card
+    alone): the spans are on through the run and off after it, and the
+    window's spans and counters reach the Run."""
+    seen = []
+    monkeypatch.setattr(harness.torch.profiler, "profile",
+                        lambda **kw: contextlib.nullcontext())
+    monkeypatch.setattr(harness.tracing, "records", lambda prof: [])
+    run = harness.circuits.BsgsMatvec.run
+    monkeypatch.setattr(harness.circuits.BsgsMatvec, "run",
+                        lambda self, i, fault=None: (seen.append(program_spans.ENABLED),
+                                                     run(self, i, fault))[1])
+    r, per_sample, extra, limits = harness.run_cell(
+        tiny.parts("ckks_n65536_l21.bsgs_d64"), 2 ** 31 + 5, 0.3, True, "cpu",
+        time.perf_counter())
+    assert harness.judgement(per_sample, extra, limits)[0]
+    assert all(seen) and not program_spans.ENABLED
+    assert r.counters is not None and r.counters["captures"] == 0
+    ks = r.spans["KEYSWITCH"]
+    assert ks["count"] == 6 * len(r.ends)           # d = 16: 3 baby and 3 giant rotations
+    assert r.spans["dispatch"]["count"] > 0 and r.spans["dispatch"]["host_ns"] > 0
+    assert harness.reader("dispatch_host_ms_per_circuit")(r) > 0
+    # the CPU times host spans only: the card's readers find nothing
+    assert harness.reader("keyswitch_device_ms_per_circuit")(r) is None
+
+
+SPANS = {"KEYSWITCH": 30e6, "BASECONV": 6e6, "MULTEVK": 9e6, "MODDOWN": 12e6}
+READS = {"keyswitch_device_ms_per_circuit": 10.0, "ks_baseconv_device_ms_per_circuit": 2.0,
+         "ks_multevk_device_ms_per_circuit": 3.0, "ks_moddown_device_ms_per_circuit": 4.0,
+         "dispatch_host_ms_per_circuit": 7.0, "graph_copy_gb_per_circuit": 2.5,
+         "graph_captures_in_window": 2}
+
+
+@pytest.mark.parametrize("metric", sorted(READS))
+def test_span_and_counter_readers_read_per_circuit(metric):
+    entry = lambda ns, host=0: {"count": 3, "host_ns": host, "device_count": 3,
+                                "device_ns": ns, "parent": None}
+    spans = {k: entry(v) for k, v in SPANS.items()}
+    spans["dispatch"] = entry(0, 21e6)
+    counters = {f: 0 for f in program_spans.Counters.FIELDS}
+    counters.update(copy_in_bytes=5e9, clone_out_bytes=2.5e9, captures=2)
+    run = harness.Run(setup_s=1.0, starts=[0.0, 1.0, 2.0], ends=[0.5, 1.5, 2.5],
+                      window_s=3.0, peak_bytes=0, spans=spans, counters=counters)
+    assert harness.reader(metric)(run) == pytest.approx(READS[metric])
+    bare = harness.Run(setup_s=1.0, starts=run.starts, ends=run.ends, window_s=3.0,
+                       peak_bytes=0)
+    assert harness.reader(metric)(bare) is None
+
+
+def test_span_marks_are_set_apart():
+    """Marks added to the synthetic records change no busy time, kernel sum,
+    top op, gap or launch count; the program's open host span names a gap."""
+    plain = _synthetic_trace()
+    recs = [("rfhe_span_mark(long*, unsigned long, unsigned long)", True, t, t + 1.4)
+            for t in (120.0, 260.0, 600.0, 900.0)]
+    host = [("KEYSWITCH", None, 0, 100_000, 400_000, None),
+            ("dispatch", None, 0, 240_000, 300_000, "rotate")]
+    marked = tracing.collect(_SYNTHETIC + recs, (0, 1_000_000), _SYNTHETIC_SPANS,
+                             {("fwd_large", 1, 2, 65536): 3}, host)
+    assert marked.marks == 4 and plain.marks == 0
+    assert marked.busy_s() == plain.busy_s() and marked.top_ops() == plain.top_ops()
+    assert marked.device_s(lambda n: True) == plain.device_s(lambda n: True)
+    assert marked.launches == plain.launches and marked.device == plain.device
+    assert marked.gaps[0] == [plain.gaps[0][0] + " | dispatch rotate", plain.gaps[0][1]]
+    assert [g[1] for g in marked.gaps] == [g[1] for g in plain.gaps]

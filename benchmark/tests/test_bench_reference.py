@@ -26,27 +26,34 @@ def test_transform_is_the_programs(n, bits):
 
 
 def test_basis_is_the_programs():
+    """Each configuration's chain, as stated and with grouped digits (dnum 3:
+    7 special primes at 21 limbs, 4 at 10)."""
     for name in ("ckks_n65536_l21", "bgv_n16384_l10"):
-        dep = tiny.harness.load_json(tiny.harness.ROOT / f"benchmark/configs/{name}.json")[
-            "deployment"]
-        dep = dict(dep, n=1024)
-        basis = scheme.Basis.make(dep, "cpu")
-        if dep["scheme"] == "ckks":
-            ctx = CkksContext(CkksParams.make(n=1024, levels=dep["levels"],
-                                              q0_bits=dep["q0_bits"],
-                                              scale_bits=dep["scale_bits"]),
-                              special_bits=dep["special_prime_bits"], device="cpu")
-        else:
-            ctx = BgvContext(BgvParams.make(n=1024, levels=dep["levels"], q_bits=dep["q_bits"],
-                                            t_bits=dep["t_bits"]),
-                             special_bits=dep["special_prime_bits"], device="cpu")
-            assert ctx.t == basis.t
-        assert tuple(ctx.ctx.moduli) == basis.ct + basis.special
+        for digits in ("per_limb", 3):
+            dep = tiny.harness.load_json(tiny.harness.ROOT / f"benchmark/configs/{name}.json")[
+                "deployment"]
+            dep = dict(dep, n=1024, digits=digits)
+            basis = scheme.Basis.make(dep, "cpu")
+            dnum = None if digits == "per_limb" else digits
+            if dep["scheme"] == "ckks":
+                ctx = CkksContext(CkksParams.make(n=1024, levels=dep["levels"],
+                                                  q0_bits=dep["q0_bits"],
+                                                  scale_bits=dep["scale_bits"]),
+                                  special_bits=dep["special_prime_bits"], dnum=dnum,
+                                  device="cpu")
+            else:
+                ctx = BgvContext(BgvParams.make(n=1024, levels=dep["levels"],
+                                                q_bits=dep["q_bits"], t_bits=dep["t_bits"]),
+                                 special_bits=dep["special_prime_bits"], dnum=dnum,
+                                 device="cpu")
+                assert ctx.t == basis.t
+            assert tuple(ctx.ctx.moduli) == basis.ct + basis.special
+            assert len(basis.special) == (1 if dnum is None else -(-basis.L // dnum))
 
 
 def test_galois_secret_is_the_programs_permutation():
     dep = {"scheme": "ckks", "n": 256, "levels": 2, "q0_bits": 30, "scale_bits": 28,
-           "special_prime_bits": 30}
+           "special_prime_bits": 30, "digits": "per_limb"}
     basis = scheme.Basis.make(dep, "cpu")
     keys = scheme.Keys(basis, torch.Generator().manual_seed(3))
     ctx = CkksContext(CkksParams.make(n=256, levels=2, q0_bits=30, scale_bits=28),
@@ -59,7 +66,7 @@ def test_galois_secret_is_the_programs_permutation():
 
 def test_bgv_batching_is_the_programs():
     dep = {"scheme": "bgv", "n": 256, "levels": 2, "q_bits": 30, "t_bits": 16,
-           "special_prime_bits": 31}
+           "special_prime_bits": 31, "digits": "per_limb"}
     basis = scheme.Basis.make(dep, "cpu")
     ctx = BgvContext(BgvParams.make(n=256, levels=2, q_bits=30, t_bits=16), device="cpu")
     m = torch.randint(0, basis.t, (2, 128), generator=torch.Generator().manual_seed(1))
@@ -78,7 +85,7 @@ def test_ckks_embedding_round_trip():
 
 def test_decryption_counts_a_foreign_limb():
     dep = {"scheme": "ckks", "n": 256, "levels": 3, "q0_bits": 30, "scale_bits": 28,
-           "special_prime_bits": 30}
+           "special_prime_bits": 30, "digits": "per_limb"}
     basis = scheme.Basis.make(dep, "cpu")
     keys = scheme.Keys(basis, torch.Generator().manual_seed(4))
     m = scheme.residues(torch.arange(256) - 100, basis.level_tables(3))
