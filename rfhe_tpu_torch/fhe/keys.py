@@ -298,7 +298,12 @@ def keyswitch(d_coeff: torch.Tensor, ksk: KeySwitchKey, level: int,
 
     Traced (`trace/spans.py`), the keyswitch is the span KEYSWITCH and its
     phases BASECONV (the digits), NTT, MULTEVK (`multevk`: the MAC against
-    the key's rows and the digit sum) and MODDOWN."""
+    the key's rows and the digit sum) and MODDOWN; inside MODDOWN each
+    `drop_limb` records `spans.MODDOWN_PHASES`: MD_INTT (the special limb's
+    inverse NTT), MD_LIFT (`lift_to_limbs`, and BGV's t-shift), MD_NTT (δ's
+    forward NTT) and MD_SCALE (`sub_mod` and `mul_mod_shoup`), read by the
+    benchmark's `ks_moddown_ntt_device_ms_per_circuit` (MD_INTT + MD_NTT)
+    and `ks_moddown_residue_device_ms_per_circuit` (MD_LIFT + MD_SCALE)."""
     L = n_ct_limbs
     sp_idx = list(range(L, len(ctx.moduli)))
     keep = list(range(level + 1)) if targets is None else list(targets)
@@ -311,8 +316,9 @@ def keyswitch(d_coeff: torch.Tensor, ksk: KeySwitchKey, level: int,
         phase("MULTEVK")
         out = multevk(dig_ntt, ksk, used, lim, ctx)
         phase("MODDOWN")
-        for k_i in range(len(sp_idx) - 1, -1, -1):
-            out = drop_limb(out, sp_idx[k_i], keep + sp_idx[:k_i], ctx, t)
+        with spans.phases() as md:
+            for k_i in range(len(sp_idx) - 1, -1, -1):
+                out = drop_limb(out, sp_idx[k_i], keep + sp_idx[:k_i], ctx, t, md)
     return out[0], out[1]
 
 

@@ -8,7 +8,7 @@ polynomial mod q_j.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +18,7 @@ from ..ops.modarith import (
     add_mod, barrett_word, mont_mul, mul_mod_shoup, neg_mod, reduce_mod, sub_mod,
 )
 from ..ops.ntt import NttPlan
+from ..trace import spans
 
 
 @dataclass(frozen=True, eq=False)
@@ -190,7 +191,8 @@ def bgv_lift_shift(r: torch.Tensor, src_k: int, keep: Sequence[int], t: int,
 
 
 def drop_limb(data: torch.Tensor, src_k: int, n_keep,
-              ctx: RnsContext, t: Optional[int] = None) -> torch.Tensor:
+              ctx: RnsContext, t: Optional[int] = None,
+              phase: Callable[[str], None] = spans.OFF) -> torch.Tensor:
     """Exact RNS divide-and-round (`rfhe_tpu.fhe.rns.drop_limb`): given
     NTT-domain limbs data = [rows for the kept moduli] + [row for modulus
     src_k] with optional leading batch dims (..., nk+1, N), return
@@ -199,26 +201,33 @@ def drop_limb(data: torch.Tensor, src_k: int, n_keep,
     δ is the centered lift of the src row.  BGV (t given): δ also satisfies
     δ ≡ 0 (mod t), δ = [c]_c − q_src·[r]_c with r of `bgv_lift_residue`,
     so the message mod t survives up to the factor q_src⁻¹ the caller's
-    correction tracks."""
+    correction tracks.  `phase` (a `spans.phases` of the caller's) is
+    called with each of `spans.MODDOWN_PHASES` as its step begins: the src
+    row's inverse NTT, the lift, δ's forward NTT, the subtract and scale."""
     keep = list(range(n_keep)) if isinstance(n_keep, int) else list(n_keep)
     nk = len(keep)
+    phase("MD_INTT")
     src_row = limb_plan(ctx, src_k).inv(data[..., nk:nk + 1, :].contiguous())
-    return drop_limb_lifted(data[..., :nk, :], src_row[..., 0, :], src_k, keep, ctx, t)
+    return drop_limb_lifted(data[..., :nk, :], src_row[..., 0, :], src_k, keep, ctx, t, phase)
 
 
 def drop_limb_lifted(kept: torch.Tensor, ck: torch.Tensor, src_k: int, keep: Sequence[int],
-                     ctx: RnsContext, t: Optional[int] = None) -> torch.Tensor:
+                     ctx: RnsContext, t: Optional[int] = None,
+                     phase: Callable[[str], None] = spans.OFF) -> torch.Tensor:
     """`drop_limb` given the dropped row's coefficients ck (..., N) and the
     kept rows (..., len(keep), N): what each kept limb needs of the dropped
     one, so that a rank holding some of the limbs computes their rows alone
-    (parallel/sharded_ckks.py)."""
+    (parallel/sharded_ckks.py).  `phase` as in `drop_limb`, from MD_LIFT on."""
+    phase("MD_LIFT")
     delta = lift_to_limbs(ck, src_k, keep, ctx, centered=True)
     keep_idx = ctx.index(keep)
     q_lo = ctx.plan.tables.q[keep_idx][:, None]
     if t is not None:
         shift = bgv_lift_shift(bgv_lift_residue(ck, ctx.moduli[src_k], t), src_k, keep, t, ctx)
         delta = sub_mod(delta, shift, q_lo)
+    phase("MD_NTT")
     delta_ntt = ctx.plan.take(keep).fwd(delta)
+    phase("MD_SCALE")
     num = sub_mod(kept, delta_ntt, q_lo)
     return mul_mod_shoup(num, ctx.qk_inv[src_k, keep_idx][:, None],
                          ctx.qk_inv_shoup[src_k, keep_idx][:, None], q_lo)

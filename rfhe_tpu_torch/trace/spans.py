@@ -44,6 +44,8 @@ import torch
 
 PHASES = ("PERMUTE", "INTT", "BASECONV", "NTT", "MULTEVK", "MODDOWN")
 KEYSWITCH = "KEYSWITCH"     # BASECONV, NTT, MULTEVK and MODDOWN open inside it
+# the phases of each `drop_limb` of the keyswitch's MODDOWN (fhe/rns.py)
+MODDOWN_PHASES = ("MD_INTT", "MD_LIFT", "MD_NTT", "MD_SCALE")
 DISPATCH = "dispatch"       # a graphed op's call on the host (utils/jitcache.py)
 DEVICE_SPANS = 64           # names the card times: one bit each in a mark's masks
 RING = 1 << 16              # host records kept, the newest
@@ -152,7 +154,8 @@ def _close(name: str, t0: int, detail) -> None:
 
 
 class _Off:
-    """What every span is while tracing is off."""
+    """What every span is while tracing is off, and the `phase` of a callee
+    whose caller records no phases (`OFF`)."""
     __slots__ = ()
 
     def __enter__(self):
@@ -165,7 +168,7 @@ class _Off:
         pass
 
 
-_OFF = _Off()
+OFF = _Off()
 
 
 class _Span:
@@ -190,13 +193,13 @@ class _Span:
 def span(name: str):
     """A span timed on the host and, where the recorder marks a card, on
     the card: `with span("KEYSWITCH"): ...`."""
-    return _Span(name, None, True) if ENABLED else _OFF
+    return _Span(name, None, True) if ENABLED else OFF
 
 
 def host_span(name: str, detail=None):
     """A span timed on the host only; `detail` is kept with its record
     (the op's name for DISPATCH)."""
-    return _Span(name, detail, False) if ENABLED else _OFF
+    return _Span(name, detail, False) if ENABLED else OFF
 
 
 class _Phases:
@@ -240,7 +243,7 @@ class _Phases:
 def phases(parent: Optional[str] = None):
     """`with phases("KEYSWITCH") as phase: phase("BASECONV"); ...;
     phase("NTT"); ...`: the phases of one parent, one mark per boundary."""
-    return _Phases(parent) if ENABLED else _OFF
+    return _Phases(parent) if ENABLED else OFF
 
 
 # ---------------------------------------------------------------------------

@@ -591,7 +591,8 @@ def _kernel_names(run):
 def test_traced_rotation_equals_untraced(cuda, dnum):
     """With tracing on, a rotation captures a graph of its own, whose result
     is the untraced one bit for bit and whose replays add each phase's time
-    on the card; with tracing off again, the first graph serves."""
+    on the card, the mod-down's four once per special prime; with tracing
+    off again, the first graph serves."""
     from rfhe_tpu_torch.trace import spans
     ctx, (a, _) = _graph_ctx(cuda, dnum)
     want = [ctx.rotate(a, 1) for _ in range(2)][-1]
@@ -609,6 +610,11 @@ def test_traced_rotation_equals_untraced(cuda, dnum):
     assert [g.replays for g in jit.graphs] == [2, 2]
     for name in spans.PHASES + (spans.KEYSWITCH,):
         assert read[name]["device_count"] == 3 and read[name]["device_ns"] > 0, name
+    specials = len(ctx.ctx.moduli) - ctx.L
+    for name in spans.MODDOWN_PHASES:
+        assert read[name]["device_count"] == 3 * specials and read[name]["device_ns"] > 0, name
+        assert read[name]["parent"] == "MODDOWN"
+    assert read["MODDOWN"]["self_device_ns"] >= 0
     assert read["MULTEVK"]["parent"] == spans.KEYSWITCH
     assert read[spans.KEYSWITCH]["self_device_ns"] >= 0
     assert read[spans.DISPATCH]["count"] == 3 and read[spans.DISPATCH]["device_count"] == 0
@@ -616,7 +622,8 @@ def test_traced_rotation_equals_untraced(cuda, dnum):
 
 def test_untraced_replay_holds_no_marks(cuda):
     """Tracing off, a replay launches the eager op's kernels and no mark;
-    tracing on, the same kernels and the rotation's 8 marks."""
+    tracing on, the same kernels and the rotation's 13 marks (8, and the
+    mod-down's 5 over its one special prime)."""
     from rfhe_tpu_torch.trace import spans
     from rfhe_tpu_torch.utils.jitcache import eager
     ctx, (a, _) = _graph_ctx(cuda)
@@ -631,7 +638,7 @@ def test_untraced_replay_holds_no_marks(cuda):
     finally:
         spans.disable()
     assert off == plain and not any("rfhe_span_mark" in k for k in off)
-    assert sum("rfhe_span_mark" in k for k in on) == 8
+    assert sum("rfhe_span_mark" in k for k in on) == 13
     assert [k for k in on if "rfhe_span_mark" not in k] == off
 
 

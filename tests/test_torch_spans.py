@@ -1,8 +1,8 @@
 """The span-and-counter recorder (rfhe_tpu_torch/trace/spans.py) on the CPU:
 names, parents, request ids and the `since` arithmetic, host spans on
 `time.time_ns`, the off path, the marks a rotation would enqueue on a card,
-the bytes a `Graph` counts against the shapes, and the phase names shared
-with trace/profiled.py.  The marks themselves run on a card only
+the mod-down's phases once per special prime, the bytes a `Graph` counts
+against the shapes, and the phase names shared with trace/profiled.py.  The marks themselves run on a card only
 (tests/test_torch_gpu.py)."""
 import time
 
@@ -104,8 +104,9 @@ def test_off_records_nothing(rotation):
 
 def test_rotation_spans_and_marks(rotation, tracing, monkeypatch):
     """A rotation's spans on the CPU carry the phase names of the profiled
-    rotation, one DISPATCH around them, and would enqueue 8 marks on a card,
-    each span opened before it closes."""
+    rotation and the mod-down's four, one DISPATCH around them, and would
+    enqueue 13 marks on a card (8, and 5 for the one special prime's
+    mod-down phases), each span opened before it closes."""
     ctx, ct = rotation
     marks = []
     monkeypatch.setattr(spans, "_mark", lambda closes, opens: marks.append((closes, opens)))
@@ -114,19 +115,53 @@ def test_rotation_spans_and_marks(rotation, tracing, monkeypatch):
     ctx.rotate(ct, 1)
     got = spans.since(snap)
     assert profiled.PHASES is spans.PHASES
-    assert set(got) == set(spans.PHASES) | {spans.KEYSWITCH, spans.DISPATCH}
+    assert set(got) == set(spans.PHASES + spans.MODDOWN_PHASES) | {spans.KEYSWITCH,
+                                                                   spans.DISPATCH}
     assert all(v["count"] == 1 for v in got.values())
     assert {k: got[k]["parent"] for k in ("BASECONV", "NTT", "MULTEVK", "MODDOWN")} == \
         dict.fromkeys(("BASECONV", "NTT", "MULTEVK", "MODDOWN"), spans.KEYSWITCH)
     assert got[spans.KEYSWITCH]["parent"] == got["PERMUTE"]["parent"] == spans.DISPATCH
     assert {r[2] for r in spans.records(snap)} == {11}
-    assert len(marks) == 8
+    assert len(marks) == 13
     bit = {name: spans._bit(name) for name in got if name != spans.DISPATCH}
     open_now = 0
     for closes, opens in marks:
         assert closes & open_now == closes
         open_now = (open_now & ~closes) | opens
     assert open_now == 0 and sum(opens for _, opens in marks) == sum(bit.values())
+
+
+@pytest.mark.parametrize("levels, dnum", [(3, None), (3, 2), (5, 2)])
+def test_moddown_phases_once_per_special_prime(levels, dnum, tracing, monkeypatch):
+    """Each `drop_limb` of a keyswitch's mod-down records MD_INTT, MD_LIFT,
+    MD_NTT and MD_SCALE under MODDOWN, once per special prime (1 per-limb,
+    ceil(L/dnum) grouped), in 4 marks a special prime and one to close the
+    last; the result is the untraced one bit for bit.  A rescale records
+    none of them."""
+    ctx = CkksContext(CkksParams.make(n=256, levels=levels, q0_bits=30, scale_bits=26), seed=1,
+                      dnum=dnum, device="cpu")
+    ct = ctx.encrypt(*ctx.encode(np.linspace(-1, 1, 128)))
+    spans.disable()
+    want = ctx.rotate(ct, 3)
+    spans.enable("cpu")
+    specials = len(ctx.ctx.moduli) - (levels + 1)
+    assert specials == (1 if dnum is None else -(-(levels + 1) // dnum))
+    marks = []
+    monkeypatch.setattr(spans, "_mark", lambda closes, opens: marks.append((closes, opens)))
+    snap = spans.snapshot()
+    got = ctx.rotate(ct, 3)
+    read = spans.since(snap)
+    assert all(torch.equal(x.data, y.data) for x, y in zip(got.c, want.c))
+    for name in spans.MODDOWN_PHASES:
+        assert (read[name]["count"], read[name]["parent"]) == (specials, "MODDOWN"), name
+    assert read["MODDOWN"]["count"] == 1
+    assert read["MODDOWN"]["self_host_ns"] >= 0
+    assert [r[0] for r in spans.records(snap) if r[1] == "MODDOWN"] == \
+        list(spans.MODDOWN_PHASES) * specials
+    assert len(marks) == 8 + 4 * specials + 1
+    snap = spans.snapshot()
+    ctx.rescale(ctx.multiply_plain(ct, ctx.encode(np.ones(128))[0], 1.0))
+    assert not set(spans.since(snap)) & set(spans.MODDOWN_PHASES + ("MODDOWN",))
 
 
 def test_signature_keys_the_marking_card(rotation, monkeypatch):
