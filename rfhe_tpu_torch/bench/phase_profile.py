@@ -6,23 +6,17 @@ reference times each keyswitch phase as a separate body by its slope method
 body shape-preserving, and takes the fused rotation's total from another
 slope, retried until it is at least half the phase sum
 (`rotation_total_checked`): the glue and the retry bias that total upward.
-Neither carries over to eager PyTorch, and neither is needed here: the
-phases are read from ONE torch.profiler profile of the real
-`trace.ProfiledRotation` (whose arrays equal `CkksContext.rotate`'s), each
-phase being the sum of the durations of the kernels launched inside its
-`record_function` range.  The span of a range on the card is not used: it
-includes the idle gaps between launches.  So the phases sum exactly to the
-rotation's own kernel total, `total_us`, with no glue and no retry; beside
-it, `rotate_us` is the kernel total of `CkksContext.rotate` profiled
-in the same session, and `lost_records` the device records that session
-lost (a long process has lost a few; the most complete of three sessions
-counts).  On the CPU (`--device cpu`) the phases are the ranges' host times
-('wall' mode), and total_us is the ROTATE range's.  On the card each phase
-is a graph replay (`trace/profiled.py`): its kernels are placed at the graph
-launch inside its range.  The copies into a graph's static inputs and out of
-its outputs (`Memcpy` records, `GLUE`) are the cost of splitting the
-rotation into graphs, not work of a phase: they count in no phase and not in
-`rotate_us` (whose one graph has its own four).
+Neither carries over here, and neither is needed: the phases are the spans
+of the main path (`trace/spans.py`), read over `reps` calls of
+`trace.ProfiledRotation`, which runs `CkksContext.rotate` itself with
+tracing on.  On the card a span's time is the card's own (each graph replay
+adds the phases it ran, 'device-spans' mode); on the CPU (`--device cpu`) it
+is the host's ('wall' mode).  `total_us` is the six phases' sum: the final
+c0 + δ add lies in no phase.  Beside it on the card, `rotate_us` is the
+kernel total of `reps` untraced calls of `CkksContext.rotate` (the graph's
+input copies and output clones left out) from the most complete of up to
+three `device.padded_profile` sessions, and `lost_records` the device
+records that session lost.
 
 Phases (reference kernel-line categories, profile_framewk sum_trace):
   PERMUTE   Galois slot gather
@@ -30,13 +24,13 @@ Phases (reference kernel-line categories, profile_framewk sum_trace):
   BASECONV  digit extension to the (Q, P) basis
   NTT       forward transform of all digits
   MULTEVK   two dyadic MACs against the key + digit sums
-  MODDOWN   divide-and-round by the special primes (and c0 + the c0 delta)
-  MD_*      the mod-down's constituents, summed over the special primes:
-            MD_INTT the special limb's inverse NTT, MD_BASECONV its centred
-            lift, MD_NTT the delta's forward NTT, MD_MODMUL subtract and scale
-Shares (`_shares`, draw_rotation.py's categories): NTT = INTT + NTT + MD_INTT
-+ MD_NTT, ModMul = MULTEVK + MD_MODMUL, BaseConv = BASECONV + MD_BASECONV,
-Others = PERMUTE + what of MODDOWN its constituents do not cover.
+  MODDOWN   divide-and-round by the special primes
+  MD_*      the mod-down's spans (`spans.MODDOWN_PHASES`), summed over the
+            special primes, under the reference's column names (`MD_COLUMNS`)
+Shares (`_shares`, draw_rotation.py's categories): NTT = INTT + NTT + the
+mod-down's two transforms, ModMul = MULTEVK + its subtract and scale,
+BaseConv = BASECONV + its centred lift, Others = PERMUTE + what of MODDOWN
+its spans do not cover.
 
 Usage:
   python -m rfhe_tpu_torch.bench.phase_profile rotation --ns 2048,...,65536
@@ -47,26 +41,24 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import math
 import os
-import time
 from typing import Dict, Optional
 
 import numpy as np
-import torch
 
-from ..device import device_records, padded_profile, require
-from ..trace.profiled import MODDOWN_PARTS, PHASES, ProfiledRotation
-from ..trace.spans import named_range
+from ..device import COPIES, _profile, require
+from ..trace import spans
+from ..trace.profiled import ProfiledRotation
+from ..trace.spans import PHASES
 from .ops_devtime import write_csv
 from .sweeps import prefix
 
 COLUMNS = ["n", "limbs", "dnum", "PERMUTE_us", "INTT_us", "BASECONV_us", "NTT_us", "MULTEVK_us",
            "MODDOWN_us", "MD_INTT_us", "MD_BASECONV_us", "MD_NTT_us", "MD_MODMUL_us", "total_us",
            "NTT", "ModMul", "BaseConv", "Others", "rotate_us", "lost_records", "mode"]
-TAGS = ("ROTATE",) + PHASES + MODDOWN_PARTS
-GLUE = "Memcpy"               # a graph's input copies and output clones
-ALONE = "CTX_ROTATE"          # the range of CkksContext.rotate profiled beside
+# the mod-down's spans (fhe/rns.py:drop_limb) -> the reference's column names
+MD_COLUMNS = {"MD_INTT": "MD_INTT", "MD_LIFT": "MD_BASECONV", "MD_NTT": "MD_NTT",
+              "MD_SCALE": "MD_MODMUL"}
 
 
 def random_ciphertext(ckks, level: int, seed: int = 1):
@@ -80,82 +72,28 @@ def random_ciphertext(ckks, level: int, seed: int = 1):
     return Ciphertext.from_numpy(comps, 1.0, True, ckks.device)
 
 
-def attribute(events, reps: int) -> Dict[str, float]:
-    """Per tag, microseconds per rotation.  A CUDA profile: each device event
-    (kernel, copy, fill) is placed at the host time of its launch (the
-    runtime call that shares its correlation id) and counts toward every
-    range of the tags that holds that time; it must lie in exactly one phase
-    of a rotation.  A CPU profile: the ranges' own host time."""
-    ranges = {t: [] for t in TAGS}
-    launched_at = {}
-    for ev in events:
-        if ev.device_type == torch.autograd.DeviceType.CPU:
-            if ev.name in ranges:
-                ranges[ev.name].append((ev.time_range.start, ev.time_range.end))
-            elif ev.name.startswith("cu"):
-                launched_at[ev.id] = ev.time_range.start
-    if len(ranges["ROTATE"]) != reps:
-        raise RuntimeError(f"{len(ranges['ROTATE'])} ROTATE ranges in a profile of {reps} rotations")
-    if not any(ev.device_type == torch.autograd.DeviceType.CUDA for ev in events):
-        return {t: sum(e - s for s, e in spans) / reps for t, spans in ranges.items()}
-    out = dict.fromkeys(TAGS, 0.0)
-    for ev in device_records(events, skip=TAGS + (ALONE,))[0]:
-        if ev.name.startswith(GLUE):
-            continue
-        at = launched_at.get(ev.id, ev.time_range.start)
-        inside = [t for t, spans in ranges.items() if any(s <= at <= e for s, e in spans)]
-        if "ROTATE" not in inside or sum(t in PHASES for t in inside) != 1:
-            raise RuntimeError(f"{ev.name} at {at} us lies in ranges {inside}: not exactly one "
-                               f"phase of a rotation")
-        for t in inside:
-            out[t] += ev.time_range.end - ev.time_range.start
-    return {t: v / reps for t, v in out.items()}
-
-
 def phase_times(ckks, level: Optional[int] = None, reps: int = 5) -> Dict[str, float]:
-    """Microseconds per rotation by phase (PHASES, MODDOWN_PARTS) and the
-    rotation's total ('ROTATE'), from one profile of `reps` warm rotations
-    by 1 of a random ciphertext at `level` (default the top), and on the
-    card 'rotate': the kernel total of `reps` calls of `CkksContext.rotate`
-    profiled in the same session, and 'lost': the device records the session
-    lost (`device.padded_profile`).  A session that lost some is taken
-    again, three times at most, and the most complete one counts."""
+    """Microseconds per rotation by phase (PHASES, then the mod-down's spans
+    under `MD_COLUMNS`' names) over `reps` warm rotations by 1 of a random
+    ciphertext at `level` (default the top), on the clock the spans used;
+    on the card also 'rotate', the kernel total of `reps` untraced calls of
+    `CkksContext.rotate`, copies left out, and 'lost', the device records
+    its profile lost."""
     level = ckks.L - 1 if level is None else level
     ct = random_ciphertext(ckks, level)
     prof_rot = ProfiledRotation(ckks)
-    prof_rot.rotate(ct, 1)                       # keys, cached tables, the kernels' build
-    if ckks.device.type != "cuda":
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-            for _ in range(reps):
-                prof_rot.rotate(ct, 1)
-        return attribute(prof.events(), reps)
-    ckks.rotate(ct, 1)
-    best = None
-    for attempt in range(3):
-        time.sleep(0.1 * attempt)
-        with padded_profile() as prof:
-            for _ in range(reps):
-                prof_rot.rotate(ct, 1)
-            with named_range(ALONE):
-                for _ in range(reps):
-                    ckks.rotate(ct, 1)
-                torch.cuda.synchronize()
-        events = prof.events()
-        device, _, lost = device_records(events, skip=TAGS + (ALONE,))
-        if best is None or lost < best[0]:
-            best = (lost, events, device)
-        if lost == 0:
-            break
-    lost, events, device = best
-    span = next(ev.time_range for ev in events
-                if ev.name == ALONE and ev.device_type == torch.autograd.DeviceType.CPU)
-    launched = {ev.id for ev in events if ev.device_type == torch.autograd.DeviceType.CPU
-                and ev.name.startswith("cu") and span.start <= ev.time_range.start <= span.end}
-    out = attribute([ev for ev in events if ev.id not in launched
-                     or ev.device_type == torch.autograd.DeviceType.CPU], reps)
-    out["rotate"] = sum(ev.time_range.end - ev.time_range.start for ev in device
-                        if ev.id in launched and not ev.name.startswith(GLUE)) / reps
-    out["lost"] = lost
+    prof_rot.rotate(ct, 1)          # keys, cached tables, the kernels' build, the traced graph
+    snap = spans.snapshot()
+    for _ in range(reps):
+        prof_rot.rotate(ct, 1)
+    got = spans.since(snap)
+    cuda = ckks.device.type == "cuda"
+    clock = "device_ns" if cuda else "host_ns"
+    out = {p: got[p][clock] / reps / 1e3 for p in PHASES}
+    out.update({col: got[md][clock] / reps / 1e3 for md, col in MD_COLUMNS.items()})
+    if cuda:
+        out["rotate"], _, _, out["lost"] = _profile(lambda: ckks.rotate(ct, 1), reps,
+                                                    leave_out=COPIES)
     return out
 
 
@@ -165,7 +103,7 @@ def _shares(ph: Dict[str, float]) -> Dict[str, float]:
     (MD_*) count toward the NTT / BaseConv / ModMul classes, as the
     reference's sum_trace.py attributes SEAL's [NTT] / [BASECONV] tags inside
     mod_switch, and only the residual of MODDOWN stays in Others."""
-    md = [ph.get(k, 0.0) for k in ("MD_INTT", "MD_BASECONV", "MD_NTT", "MD_MODMUL")]
+    md = [ph.get(k, 0.0) for k in MD_COLUMNS.values()]
     md_scale = min(1.0, ph["MODDOWN"] / sum(md)) if sum(md) > 0 else 0.0
     mdi, mdb, mdn, mdm = (v * md_scale for v in md)
     ntt = ph["NTT"] + ph["INTT"] + mdi + mdn
@@ -178,22 +116,18 @@ def _shares(ph: Dict[str, float]) -> Dict[str, float]:
 
 
 def rotation_row(ckks, dnum="", reps: int = 5) -> dict:
-    """One CSV row: the phases, total_us, the shares, and beside them the
-    kernel total of `CkksContext.rotate` profiled separately (cuda only)."""
+    """One CSV row: the phases, total_us (their sum), the shares, and beside
+    them the kernel total of `CkksContext.rotate` profiled untraced (cuda
+    only)."""
     ph = phase_times(ckks, reps=reps)
-    total = ph.pop("ROTATE")
     rotate_us = ph.pop("rotate", "")
     lost = ph.pop("lost", "")
-    phase_sum = sum(ph[t] for t in PHASES)
-    cuda = ckks.device.type == "cuda"
-    if cuda and not math.isclose(phase_sum, total, rel_tol=1e-9):
-        raise RuntimeError(f"phases sum to {phase_sum} us, the rotation's kernels to {total} us")
     sh = _shares({k: v * 1e-6 for k, v in ph.items()})
     return {"n": ckks.params.n, "limbs": ckks.L, "dnum": dnum,
-            **{f"{k}_us": v for k, v in ph.items()}, "total_us": total,
+            **{f"{k}_us": v for k, v in ph.items()}, "total_us": sum(ph[p] for p in PHASES),
             **{k: sh[k] for k in ("NTT", "ModMul", "BaseConv", "Others")},
             "rotate_us": rotate_us, "lost_records": lost,
-            "mode": "device-profiler" if cuda else "wall"}
+            "mode": "device-spans" if ckks.device.type == "cuda" else "wall"}
 
 
 def rotation_rows(ns, limbs: int, device, reps: int = 5):

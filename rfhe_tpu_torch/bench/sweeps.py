@@ -245,7 +245,7 @@ def composition_rows(n: int, levels: int, seed: int, device):
     import numpy as np
     from ..device import op_us
     from ..fhe import CkksContext, CkksParams
-    from ..trace.profiled import PHASES
+    from ..trace.spans import PHASES
     from .phase_profile import phase_times
     ckks = CkksContext(CkksParams.make(n=n, levels=levels + 2, q0_bits=30, scale_bits=26),
                        seed=seed, device=device)

@@ -155,6 +155,7 @@ MODES = ("device-timer", "device-profiler", "wall", "device-unresolved")
 # output clones).
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync")
 _PAD_KERNEL = "spin_kernel"          # torch.cuda._sleep's kernel
+COPIES = ("Memcpy",)                 # the device records of copies (a graph's glue)
 MEASURED = "measured"
 
 
@@ -179,16 +180,16 @@ def padded_profile():
         torch.cuda.synchronize()
 
 
-def device_records(events, skip=()) -> tuple:
-    """(the device records of a `padded_profile` but the padding, the user
-    annotations and names in `skip`; the kernel launches made inside
+def device_records(events) -> tuple:
+    """(the device records of a `padded_profile` but the padding and the user
+    annotations; the kernel launches made inside
     MEASURED; how many of those left no device record).  A record and its
     launch share a correlation id; the launches are host records, which the
     sessions that lost device records kept."""
     spans = [(ev.time_range.start, ev.time_range.end) for ev in events
              if ev.device_type == torch.autograd.DeviceType.CPU and ev.name == MEASURED]
     device = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA
-              and ev.name != MEASURED and ev.name not in skip and _PAD_KERNEL not in ev.name
+              and ev.name != MEASURED and _PAD_KERNEL not in ev.name
               and not getattr(ev, "is_user_annotation", False)]
     seen = {ev.id for ev in device}
     launches = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CPU
@@ -197,11 +198,13 @@ def device_records(events, skip=()) -> tuple:
     return device, len(launches), sum(1 for ev in launches if ev.id not in seen)
 
 
-def _profile(fn, reps: int, match: str = "", between=None) -> tuple:
+def _profile(fn, reps: int, match: str = "", between=None, leave_out: tuple = ()) -> tuple:
     """(µs of the kernels matching `match`, their records, kernel launches,
     lost records) per call over `reps` calls, from the most complete of up to
     three `padded_profile` sessions, a short pause before each retry (a
-    process that has begun to lose records mostly keeps losing them)."""
+    process that has begun to lose records mostly keeps losing them).
+    Records whose names start with one of `leave_out` (`COPIES`, say) count
+    in none of the sums."""
     fn()
     best = None
     for attempt in range(3):
@@ -213,7 +216,7 @@ def _profile(fn, reps: int, match: str = "", between=None) -> tuple:
                     between()
                 fn()
         device, launched, lost = device_records(prof.events())
-        kernels = [ev for ev in device if match in ev.name]
+        kernels = [ev for ev in device if match in ev.name and not ev.name.startswith(leave_out)]
         total = sum(ev.device_time_total for ev in kernels)
         if (total > 0 or launched) and (best is None or lost < best[3]):
             best = (total / reps, len(kernels) / reps, launched / reps, lost)

@@ -18,10 +18,6 @@ finding what a kernel's time is made of:
   --skip-butterflies  builds the kernels with -DRFHE_NTT_SKIP_BUTTERFLIES:
                       loads, exchanges, barriers and stores without the
                       arithmetic
-  --cp-async          builds the forward cluster kernel with
-                      -DRFHE_NTT_CLUSTER_CP_ASYNC: the next polynomial's tile
-                      staged in shared memory by 16-byte cp.async requests
-                      instead of the register prefetch of the low words
   --groups G ...      fixes the number of polynomial groups (grid.y) instead
                       of `ntt_cuda.poly_groups`; several values are timed in
                       turn
@@ -74,7 +70,6 @@ def main() -> None:
     ap.add_argument("--shapes", nargs="+", default=SHAPES, help="batch,L,n")
     ap.add_argument("--forms", nargs="+", default=FORMS, choices=FORMS)
     ap.add_argument("--skip-butterflies", action="store_true")
-    ap.add_argument("--cp-async", action="store_true")
     ap.add_argument("--groups", type=int, nargs="+", default=[None])
     ap.add_argument("--primes-bits", type=int, default=30)
     ap.add_argument("--cold", action="store_true")
@@ -83,8 +78,6 @@ def main() -> None:
         raise SystemExit("time_ntt needs a CUDA device")
     if args.skip_butterflies:
         ntt_cuda.NVCC_FLAGS += ("-DRFHE_NTT_SKIP_BUTTERFLIES",)
-    if args.cp_async:
-        ntt_cuda.NVCC_FLAGS += ("-DRFHE_NTT_CLUSTER_CP_ASYNC",)
     own_groups = ntt_cuda.poly_groups
     big = torch.zeros(1 << 26, dtype=torch.int32, device="cuda")
     evict = lambda: big.add_(1)       # 256 MB read and written through the 50 MB L2
@@ -114,7 +107,6 @@ def main() -> None:
             if hasattr(ntt_cuda, "launch_plan"):
                 ntt_cuda.launch_plan.cache_clear()
         what = ("data movement only" if args.skip_butterflies else "kernels") + \
-            (", forward cluster loads by cp.async" if args.cp_async else "") + \
             (f", {groups} polynomial groups" if groups else "") + f", {args.primes_bits}-bit primes"
         for shape in args.shapes:
             batch, L, n = (int(v) for v in shape.split(","))

@@ -10,8 +10,7 @@ two levels (SURVEY.md §5):
 kernel lines; TraceCollector keeps the structured events, and
 trace/analyze.py parses the text form.  Both `scope` and `kernel` also open
 a `torch.profiler.record_function` range of the same name (through
-`spans.named_range`), so a profile of the region attributes the device's
-kernels to the phase that launched them (bench/phase_profile.py).
+`spans.named_range`), so a profile of the region shows each by name.
 """
 from __future__ import annotations
 

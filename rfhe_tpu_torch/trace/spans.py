@@ -65,8 +65,7 @@ _host: Dict[str, list] = {}           # name -> [closes, ns]
 
 def named_range(name: str):
     """A `torch.profiler.record_function` range: where the port opens every
-    named range of a profile (trace/markers.py, trace/profiled.py,
-    device.py, bench/phase_profile.py)."""
+    named range of a profile (trace/markers.py, device.py)."""
     return torch.profiler.record_function(name)
 
 

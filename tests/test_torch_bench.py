@@ -145,6 +145,24 @@ def test_rotation_rows_on_the_cpu(tmp_path):
         assert abs(sum(shares) - 1) < 1e-9
 
 
+def test_md_columns_are_the_mod_down_spans(monkeypatch):
+    """The four MD columns of phase_times are the mod-down's spans
+    (fhe/rns.py:drop_limb) over the window of its rotations, per rotation."""
+    windows = []
+    since = phase_profile.spans.since
+    monkeypatch.setattr(phase_profile.spans, "since",
+                        lambda snap: windows.append(since(snap)) or windows[-1])
+    tc = CkksContext(CkksParams.make(n=256, levels=2), seed=3, device="cpu")
+    ph = phase_profile.phase_times(tc, reps=2)
+    got = windows[-1]
+    spans_of = {"MD_INTT": "MD_INTT", "MD_BASECONV": "MD_LIFT", "MD_NTT": "MD_NTT",
+                "MD_MODMUL": "MD_SCALE"}
+    assert sorted(spans_of.values()) == sorted(phase_profile.spans.MODDOWN_PHASES)
+    for col, span in spans_of.items():
+        assert got[span]["count"] == 2 * (len(tc.ctx.moduli) - tc.L)
+        assert ph[col] == got[span]["host_ns"] / 2 / 1e3 > 0, col
+
+
 class _Ev:
     """A profiler event: name, device type, host-clock span, correlation id."""
 
@@ -152,36 +170,6 @@ class _Ev:
         self.name, self.id = name, id
         self.device_type = torch.autograd.DeviceType.CUDA if cuda else torch.autograd.DeviceType.CPU
         self.time_range = type("R", (), {"start": start, "end": end})()
-
-
-def test_attribute_sums_kernels_by_range():
-    """Device events count toward every range that holds their launch (or,
-    with no launch recorded, their start); each lies in exactly one phase of
-    a rotation; the padding, annotations and the side range do not count."""
-    events = [_Ev("ROTATE", False, 0, 100), _Ev("PERMUTE", False, 1, 10),
-              _Ev("MODDOWN", False, 10, 99), _Ev("MD_NTT", False, 20, 30),
-              _Ev("k1", True, 2, 5), _Ev("k2", True, 21, 28), _Ev("k3", True, 50, 51),
-              _Ev("cudaLaunchKernel", False, 22, 23, id=7), _Ev("k5", True, 31, 33, id=7),
-              _Ev("at::cuda::spin_kernel(long)", True, 100.5, 101),
-              _Ev("MODDOWN", True, 10, 99), _Ev(phase_profile.ALONE, True, 120, 130)]
-    out = phase_profile.attribute(events, 1)
-    assert out["ROTATE"] == 13 and out["PERMUTE"] == 3 and out["MODDOWN"] == 10
-    assert out["MD_NTT"] == 9 and out["NTT"] == 0
-    with pytest.raises(RuntimeError, match="exactly one phase"):
-        phase_profile.attribute(events + [_Ev("k4", True, 99.5, 99.7)], 1)
-
-
-def test_attribute_places_graph_kernels_at_their_launch():
-    """A replayed graph's kernels share the graph launch's correlation id and
-    count in the phase whose range holds that launch, wherever the card ran
-    them; the graph's input copies and output clones count in no phase."""
-    events = [_Ev("ROTATE", False, 0, 100), _Ev("PERMUTE", False, 1, 10),
-              _Ev("MODDOWN", False, 10, 99), _Ev("cudaGraphLaunch", False, 2, 3, id=9),
-              _Ev("k1", True, 150, 154, id=9), _Ev("k2", True, 154, 155, id=9),
-              _Ev("cudaMemcpyAsync", False, 4, 5, id=10),
-              _Ev("Memcpy DtoD (Device -> Device)", True, 140, 141, id=10)]
-    out = phase_profile.attribute(events, 1)
-    assert out["PERMUTE"] == 5 and out["ROTATE"] == 5 and out["MODDOWN"] == 0
 
 
 def test_device_records_count_lost_launches():

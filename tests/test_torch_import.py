@@ -142,8 +142,8 @@ NAMES_ELSEWHERE = {
     "faults/inject.py": {k: ("faults/ntt_control.py", "the port's kind codes")
                          for k in ("KIND_SBF", "KIND_DBF", "KIND_MOF1")},
     "native.py": {"KIND_IDS": ("native.py", "SCENARIOS holds the codes")},
-    "bench/phase_profile.py": {k: ("bench/phase_profile.py", "one profile gives the total "
-                                   "and the phases")
+    "bench/phase_profile.py": {k: ("bench/phase_profile.py", "the spans give the phases "
+                                   "and their sum")
                                for k in ("rotation_total", "rotation_total_checked")},
     "bench/roofline.py": {k: (None, "TPU v5e constants; the port's are the H100's")
                           for k in ("V5E_HBM_BPS", "V5E_BF16_FLOPS", "V5E_INT8_OPS")},

@@ -1,8 +1,8 @@
 """The port's trace layer against rfhe_tpu's: the collector's text, the
 trace parsers on the strings of tests/test_trace.py, and ProfiledRotation,
 whose arrays equal the reference's `ckks.rotate` bit for bit (n = 256, 3
-ciphertext primes, per-limb digits and dnum = 2); `op_cost`'s keys on the
-CPU."""
+ciphertext primes, per-limb digits and dnum = 2) and whose kernel lines are
+the main path's spans; `op_cost`'s keys on the CPU."""
 import io
 import re
 
@@ -16,8 +16,8 @@ from rfhe_tpu.trace import (TraceCollector as RefCollector, TraceEvent as RefEve
 from rfhe_tpu_torch.fhe import CkksContext, CkksParams
 from rfhe_tpu_torch.trace import (ProfiledRotation, TraceCollector, TraceEvent,
                                   collapse_kernel_runs, evaluator_cost_report, format_report,
-                                  op_cost, summarize_roi)
-from rfhe_tpu_torch.trace.profiled import MODDOWN_PARTS, PHASES
+                                  op_cost, spans, summarize_roi)
+from rfhe_tpu_torch.trace.spans import PHASES
 
 torch.set_num_threads(1)
 
@@ -131,19 +131,38 @@ def test_profiled_rotation_lines(rotations):
     assert summarize_roi(prof.last_collector.text().splitlines())["per_tag"]["NTT"] >= 0
 
 
-def test_profiled_rotation_ranges(rotations):
-    """Every phase, and every mod-down constituent once per special prime, is
-    a record_function range of the profile."""
+def test_profiled_rotation_phases_are_the_spans(rotations):
+    """Each kernel line is the time of its phase's span in that rotation, on
+    the host's clock here; each special prime's drop_limb closes the
+    mod-down's four steps under MODDOWN."""
     tc = rotations[3].ckks
     ct = tc.encrypt(*tc.encode(np.zeros(PARAMS["n"] // 2)))
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as p:
-        ProfiledRotation(tc).rotate(ct, 1)
-    names = [ev.name for ev in p.events()]
+    col = TraceCollector()
+    spans.enable("cpu")
+    try:
+        snap = spans.snapshot()
+        ProfiledRotation(tc).rotate(ct, 1, col)
+        got = spans.since(snap)
+    finally:
+        spans.disable()
+    lines = [(ev.tag, ev.micros) for ev in col.events if ev.kind == "kernel"]
+    assert lines == [(p, got[p]["host_ns"] / 1e3) for p in PHASES]
     n_sp = len(tc.ctx.moduli) - tc.L
-    for tag in ("ROTATE",) + PHASES:
-        assert names.count(tag) == 1, tag
-    for tag in MODDOWN_PARTS:
-        assert names.count(tag) == n_sp, tag
+    for step in spans.MODDOWN_PHASES:
+        assert got[step]["count"] == n_sp and got[step]["parent"] == "MODDOWN", step
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["off", "on"])
+def test_profiled_rotation_leaves_tracing_as_found(on):
+    tc = CkksContext(CkksParams.make(**PARAMS), seed=3, device="cpu")
+    ct = tc.encrypt(*tc.encode(np.zeros(PARAMS["n"] // 2)))
+    if on:
+        spans.enable("cpu")
+    try:
+        ProfiledRotation(tc).rotate(ct, 1)
+        assert (spans.ENABLED, spans.MARKING) == (on, None)
+    finally:
+        spans.disable()
 
 
 def test_op_cost_keys_on_the_cpu(rotations):
