@@ -25,6 +25,13 @@ Phases, each a plain function; any failure raises and the exit code is not 0:
      random words and the worst ones (digits 2^32 - 1, keys q - 1), one
      launch a call; its time by the device timer beside its byte bound and
      the plain version's
+  3c. MODDOWN's kernels (rfhe_md_lift_kernel, rfhe_md_scale_kernel,
+     fhe/rns.py:moddown_lift / moddown_scale) against their plain versions,
+     bit for bit, at the benchmark's drop_limb shapes: per-limb (2, 21,
+     65536), the seven dnum=3 (2, 27 ... 21, 65536) and the batchless
+     rescale (20 of 21), edge words first; each kernel's time by the device
+     timer beside its byte bound and the plain version's.  Every counted path
+     below must launch both
   4. N=4096 path: CKKS with 21 ciphertext primes and one special prime (the
      reference's bench.py configuration): encode, encrypt, rotate by 1,
      decrypt; multiply_relin, rescale, decrypt; the keyswitch digits of c1
@@ -241,6 +248,7 @@ from rfhe_tpu_torch.fhe.keys import (KeySwitchKey, compute_digits, digit_basis, 
                                      multevk_plain)
 from rfhe_tpu_torch.fhe.protected import Fault, ProtectedBgv, ProtectedCkks, all_ok
 from rfhe_tpu_torch.fhe.params import make_prime_chain
+from rfhe_tpu_torch.fhe import rns
 from rfhe_tpu_torch.fhe.rns import RnsContext, poly_intt
 from rfhe_tpu_torch.models import bsgs, motivation
 from rfhe_tpu_torch.models.dotprod import dot_product_bgv
@@ -391,6 +399,82 @@ def phase_ks_mac(c: str) -> dict:
         out[name] = {"shape": [len(used), len(lim), n], "ms": (k1 + k2) / 2, "paced_ms": paced,
                      "plain_ms": (p1 + p2) / 2, "bound_ms": b, "bound_by": "bytes"}
         del ctx, ksk, dig, top
+    return out
+
+
+# MODDOWN's `drop_limb`s at the benchmark's shapes: (name, prime bit sizes,
+# dropped modulus, kept moduli, batched); N=65536.
+MD_SHAPES = (("per-limb", [30] + [28] * 20 + [30], 21, list(range(21)), True),
+             *((f"dnum={DNUM} nk={21 + k}", [30] + [28] * 20 + [30] * 7, 21 + k,
+                list(range(21 + k)), True) for k in range(6, -1, -1)),
+             ("rescale", [30] + [28] * 20 + [30], 20, list(range(20)), False))
+
+
+def md_bound_ms(batch: int, nk: int, n: int) -> tuple:
+    """The MODDOWN kernels' least times (lift, scale): the lift reads the
+    dropped row and writes δ, the scale reads the kept rows and δ̂ and
+    writes the result, each int64 word once, over the HBM rate."""
+    words = batch * nk * n
+    return (8 * (words + batch * n) / HBM_BYTES_PER_S * 1e3, 8 * 3 * words / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_moddown(c: str) -> dict:
+    """`moddown_lift` and `moddown_scale` on the card (one
+    `rfhe_md_lift_kernel` / `rfhe_md_scale_kernel` launch a call) against
+    their plain versions (`lift_to_limbs`, `moddown_scale_plain`) at each of
+    MD_SHAPES, on random words with the edge words first (ck at 0,
+    q_src//2, q_src//2 + 1, q_src − 1; kept and δ̂ at 0 and q_i − 1), kept
+    read through the view data[..., :nk, :]; then each kernel twice by the
+    device timer beside its byte bound and the plain version host-paced
+    before and after (plain, kernel, kernel, plain)."""
+    n, out, contexts = 65536, {}, {}
+    for name, bits, src_k, keep, batched in MD_SHAPES:
+        key = tuple(bits)
+        if key not in contexts:
+            contexts[key] = RnsContext.make(n, make_prime_chain(n, bits), "cuda")
+        ctx, nk = contexts[key], len(keep)
+        q = ctx.plan.q_arr[keep + [src_k]][:, None]
+        g = torch.Generator(device="cuda").manual_seed(n + nk + batched)
+        shape = ((2,) if batched else ()) + (nk + 1, n)
+        data = torch.randint(0, 1 << 62, shape, device="cuda", generator=g) % q
+        zero = torch.zeros_like(q)
+        data[..., :4] = torch.cat([zero, zero, q - 1, q - 1], dim=1)
+        ck = rns.limb_plan(ctx, src_k).inv(data[..., nk:nk + 1, :].contiguous())[..., 0, :]
+        q_src = ctx.moduli[src_k]
+        ck[..., :4] = torch.tensor([0, q_src // 2, q_src // 2 + 1, q_src - 1], device="cuda")
+        kept = data[..., :nk, :]
+        dnt = torch.randint(0, 1 << 62, kept.shape, device="cuda", generator=g) % q[:nk]
+        dnt[..., :4] = torch.cat([zero, q - 1, zero, q - 1], dim=1)[:nk]
+        before = ntt_cuda.KERNELS.snapshot()
+        lift = lambda: rns.moddown_lift(ck, src_k, keep, ctx)
+        scale = lambda: rns.moddown_scale(kept, dnt, src_k, keep, ctx)
+        plain_lift = lambda: rns.lift_to_limbs(ck, src_k, keep, ctx, centered=True)
+        plain_scale = lambda: rns.moddown_scale_plain(kept, dnt, src_k, keep, ctx)
+        for what, kernel, plain in (("lift", lift, plain_lift), ("scale", scale, plain_scale)):
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"moddown {what} {name}: {int((got != want).sum())} words "
+                                   f"differ from the plain version")
+        launches = (2 if batched else 1, nk, n)
+        calls = ntt_cuda.KERNELS.since(before)
+        if calls["md_lift"] != {launches: 1} or calls["md_scale"] != {launches: 1}:
+            raise RuntimeError(f"moddown {name}: launches {calls['md_lift']}, "
+                               f"{calls['md_scale']} for one call each")
+        row = {"shape": list(launches)}
+        for what, kernel, plain, bound in zip(("lift", "scale"), (lift, scale),
+                                              (plain_lift, plain_scale), md_bound_ms(*launches)):
+            p1 = cuda_ms(plain, 4)
+            k1, k2 = device_ms(kernel), device_ms(kernel)
+            p2 = cuda_ms(plain, 4)
+            print(f"[moddown] {c}: {what} {name} {tuple(launches)}: equal to the plain version; "
+                  f"kernel {k1:.4f} / {k2:.4f} ms by the device timer, plain {p1:.4f} / "
+                  f"{p2:.4f} ms host-paced (plain, kernel, kernel, plain), bound {bound:.4f} ms "
+                  f"by bytes, share of bound {200 * bound / (k1 + k2):.1f}%")
+            row[what] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound,
+                         "bound_by": "bytes"}
+        out[name] = row
+        del data, ck, kept, dnt
     return out
 
 
@@ -653,7 +737,7 @@ def drive_counted(tag: str, what: str, params: dict, dnum=None, twice: bool = Fa
     secs = time.perf_counter() - t0
     k = ntt_cuda.KERNELS
     launches, passes, by_kernels = dict(k.launches), dict(k.passes), dict(k.by_kernels)
-    mac = sum(k.ks_mac.values())
+    mac = {name: sum(getattr(k, name).values()) for name in ("ks_mac", "md_lift", "md_scale")}
     print(f"[{tag}] {what}, seed {SEED} on cuda: keygen, encrypt, rotate(1), multiply_relin, "
           f"rescale{' (twice), rotate' if twice else ''}, decrypts in {secs:.2f} s "
           f"(first call, keys included)")
@@ -662,12 +746,13 @@ def drive_counted(tag: str, what: str, params: dict, dnum=None, twice: bool = Fa
         if not e <= limit:
             raise RuntimeError(f"{what}: {name} fails its limit")
     print(f"[{tag}] kernel launches on this path: {launches}; by the kernels that ran: "
-          f"{by_kernels}; __global__ launches: {passes}; MULTEVK kernel: {dict(k.ks_mac)}")
+          f"{by_kernels}; __global__ launches: {passes}; MULTEVK kernel: {dict(k.ks_mac)}; "
+          f"MODDOWN kernels: lift {dict(k.md_lift)}, scale {dict(k.md_scale)}")
     large = "_large" if ntt_cuda.default_split(params["n"]) else ""
     if launches["fwd" + large] == 0 or launches["inv" + large] == 0:
         raise RuntimeError(f"{what} did not launch both kernels: {launches}")
-    if mac == 0:
-        raise RuntimeError(f"{what} launched no MULTEVK kernel (rfhe_ks_mac_kernel)")
+    if not all(mac.values()):
+        raise RuntimeError(f"{what} left a keyswitch kernel unlaunched: {mac}")
     return ctx, arrays, launches, by_kernels, mac
 
 
@@ -2414,7 +2499,7 @@ def phase_graphs(c: str, ctxs: dict, bgv: tuple, bfv: tuple) -> tuple:
 def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
                    scheme: dict, faults: dict, profiling: dict, validate: dict,
                    demos: dict, sharded: dict, entries: dict, graphs: dict,
-                   ks_mac: dict, mac_launches: dict) -> list:
+                   ks_mac: dict, mac_launches: dict, moddown: dict) -> list:
     """One record per kernel form at its path's keyswitch shape, in the form
     that shape takes by itself, with every other shape and form timed in this
     run under `other_shapes`.  `ms` is the device timer's reading, `paced_ms`
@@ -2430,7 +2515,8 @@ def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
     NTT of a replay counted as one launch of its kernel).  Last, the MULTEVK
     kernel's record at bsgs's keyswitch shape (phase 3b), its other shapes
     under `other_shapes`, its launches on the N=4096 and the two N=65536
-    paths under `launches_paths`."""
+    paths under `launches_paths`; then the MODDOWN kernels' records at the
+    per-limb `drop_limb` (phase 3c), the same way."""
     records = []
     for d in ("fwd", "inv"):
         for large, key in (("", "4096"), ("_large", "65536")):
@@ -2458,12 +2544,25 @@ def kernel_records(err: dict, launches: dict, times: dict, protected: dict,
     head = ks_mac["bsgs"]
     records.append({"name": "rfhe_ks_mac", "route": "cuda", "source": SOURCE,
                     "replaces": "rfhe_tpu/fhe/keys.py:358 (keyswitch's mont_mul and _sum_digits)",
-                    "launches": sum(mac_launches.values()), "launches_paths": mac_launches,
+                    "launches": sum(m["ks_mac"] for m in mac_launches.values()),
+                    "launches_paths": {path: m["ks_mac"] for path, m in mac_launches.items()},
                     "max_abs_err": 0, "ms": head["ms"], "plain_ms": head["plain_ms"],
                     "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                     "library_ms": None, "timer": DEVICE_TIMER, "paced_ms": head["paced_ms"],
                     "shape": head["shape"],
                     "other_shapes": [dict(v, of=name) for name, v in ks_mac.items() if v is not head]})
+    for what in ("lift", "scale"):
+        head = moddown["per-limb"]
+        counts = {path: m[f"md_{what}"] for path, m in mac_launches.items()}
+        records.append({"name": f"rfhe_md_{what}", "route": "cuda", "source": SOURCE,
+                        "replaces": "rfhe_tpu/fhe/rns.py:drop_limb (XLA's int64 passes)",
+                        "launches": sum(counts.values()), "launches_paths": counts,
+                        "max_abs_err": 0, "ms": head[what]["ms"],
+                        "plain_ms": head[what]["plain_ms"], "bound_ms": head[what]["bound_ms"],
+                        "bound_by": "bytes", "library_ms": None, "timer": DEVICE_TIMER,
+                        "shape": head["shape"],
+                        "other_shapes": [dict(v[what], shape=v["shape"], of=name)
+                                         for name, v in moddown.items() if v is not head]})
     return records
 
 
@@ -2472,6 +2571,7 @@ def main() -> None:
     phase_build()
     err = phase_kernels()
     ks_mac = phase_ks_mac(c)
+    moddown = phase_moddown(c)
     ctxs, launches, mac_launches = {}, dict.fromkeys(ntt_cuda.FORMS, 0), {}
     by_kernels = dict.fromkeys(ntt_cuda.KERNEL_SETS, 0)
     paths = {"N=4096": phase_main_path, "N=65536": phase_large_per_limb,
@@ -2548,7 +2648,8 @@ def main() -> None:
         raise RuntimeError(f"kernels that no path launched: {launches}, {by_kernels}")
     print(json.dumps({"kernels": kernel_records(err, launches, times, protected, scheme, faults,
                                                 profiling, validate, demos, sharded,
-                                                entries, graphs, ks_mac, mac_launches)}))
+                                                entries, graphs, ks_mac, mac_launches,
+                                                moddown)}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -34,10 +34,11 @@
 // The device functions of the large-ring section below (register rounds,
 // twiddle slots, exchanges, the closed-form slot) serve all kernels; the
 // one-block kernels follow the cluster kernels, whose shape they share.
-// Last come two kernels that are no transform, kept here so that they build
+// Last come four kernels that are no transform, kept here so that they build
 // and load with the others: `rfhe_span_mark`, trace/spans.py's one-thread
-// clock mark, and `rfhe_ks_mac_kernel`, the keyswitch's key product and digit
-// sum (fhe/keys.py:multevk).
+// clock mark, `rfhe_ks_mac_kernel`, the keyswitch's key product and digit
+// sum (fhe/keys.py:multevk), and `rfhe_md_lift_kernel` and
+// `rfhe_md_scale_kernel`, the residue passes of a mod-down's `drop_limb`.
 
 #include <cstdint>
 #include <map>
@@ -1158,6 +1159,74 @@ rfhe_ks_mac_kernel(const ulonglong2* __restrict__ dig, const ulonglong2* __restr
   out[((size_t)n_lim + i) * pairs + c] = make_ulonglong2(a0 % q, a1 % q);
 }
 
+// MODDOWN's residue passes, around δ's forward NTT in each `drop_limb`
+// (fhe/rns.py:drop_limb_lifted; the JAX package leaves them to XLA,
+// `rfhe_tpu/fhe/rns.py:drop_limb`, so they replace no TPU kernel).  For the
+// dropped modulus q_s and each kept limb i of modulus q_i:
+//   lift:  δ[b, i, c]   = [ck[b, c]]_c mod q_i, the centred lift: ck mod q_i,
+//                         less q_s mod q_i where ck > ⌊q_s/2⌋
+//   scale: out[b, i, c] = (kept[b, i, c] − δ̂[b, i, c]) · q_s⁻¹  mod q_i
+// for canonical words (ck < q_s, kept and δ̂ below q_i), bit for bit the
+// plain versions' words (`lift_to_limbs`, `moddown_scale_plain`).  Bytes
+// bind: at (2, 27, 65536) the lift writes δ (28 MB) from a 1 MB row and the
+// scale reads the kept rows and δ̂ and writes the result (85 MB), 0.034 ms
+// at 3.35 TB/s together, against a few 32-bit operations a word.  So each
+// pass moves every word once: one thread takes two coefficients of one
+// limb with 16-byte loads and stores, the kept rows are read in place
+// through their strides (a view data[..., :nk, :] of the limbs being
+// dropped from), the lift's row is read once per limb from the L2, and
+// every constant comes from a table the context keeps per (q_s, kept limbs).
+// ck mod q_i is Barrett's with m = ⌊2^32/q_i⌋ (ck < 2^31, so one
+// conditional subtract), q_s above q_i or below it; the scale is
+// `mul_shoup` (the Shoup word of q_s⁻¹ mod q_i).  grid (⌈n/512⌉, nk, B),
+// 256 threads; tab (uint32): ⌊q_s/2⌋, then q_i (nk), q_s mod q_i (nk),
+// ⌊2^32/q_i⌋ (nk), q_s⁻¹ mod q_i (nk), its Shoup word (nk).  Strides are
+// in coefficient pairs.
+constexpr int kMdThreads = 256;
+
+__device__ __forceinline__ uint32_t barrett32(uint32_t v, uint32_t q, uint32_t m) {
+  // v mod q for v < 2^32, m = ⌊2^32/q⌋: hi(v·m) is ⌊v/q⌋ or one less
+  const uint32_t r = v - __umulhi(v, m) * q;
+  return r >= q ? r - q : r;
+}
+
+__device__ __forceinline__ uint32_t centred_lift(uint32_t v, uint32_t half, uint32_t q,
+                                                 uint32_t qs_mod, uint32_t m) {
+  const uint32_t r = barrett32(v, q, m);
+  return v > half ? sub_q(r, qs_mod, q) : r;
+}
+
+__global__ void __launch_bounds__(kMdThreads)
+rfhe_md_lift_kernel(const ulonglong2* __restrict__ ck, const uint32_t* __restrict__ tab,
+                    ulonglong2* __restrict__ delta, int nk, int pairs, long long ck_batch) {
+  const int c = blockIdx.x * kMdThreads + threadIdx.x;
+  if (c >= pairs) return;
+  const int i = blockIdx.y;
+  const size_t b = blockIdx.z;
+  const uint32_t half = tab[0], q = tab[1 + i], qs_mod = tab[1 + nk + i],
+                 m = tab[1 + 2 * nk + i];
+  const ulonglong2 v = ck[b * ck_batch + c];
+  delta[(b * nk + i) * pairs + c] =
+      make_ulonglong2(centred_lift((uint32_t)v.x, half, q, qs_mod, m),
+                      centred_lift((uint32_t)v.y, half, q, qs_mod, m));
+}
+
+__global__ void __launch_bounds__(kMdThreads)
+rfhe_md_scale_kernel(const ulonglong2* __restrict__ kept, const ulonglong2* __restrict__ dnt,
+                     const uint32_t* __restrict__ tab, ulonglong2* __restrict__ out, int nk,
+                     int pairs, long long kept_batch, long long kept_limb) {
+  const int c = blockIdx.x * kMdThreads + threadIdx.x;
+  if (c >= pairs) return;
+  const int i = blockIdx.y;
+  const size_t b = blockIdx.z;
+  const uint32_t q = tab[1 + i], w = tab[1 + 3 * nk + i], w_shoup = tab[1 + 4 * nk + i];
+  const ulonglong2 x = kept[b * kept_batch + i * kept_limb + c];
+  const size_t at = (b * nk + i) * pairs + c;
+  const ulonglong2 d = dnt[at];
+  out[at] = make_ulonglong2(mul_shoup(sub_q((uint32_t)x.x, (uint32_t)d.x, q), w, w_shoup, q),
+                            mul_shoup(sub_q((uint32_t)x.y, (uint32_t)d.y, q), w, w_shoup, q));
+}
+
 }  // namespace
 
 extern "C" {
@@ -1243,6 +1312,36 @@ int rfhe_ks_mac(const void* dig, const void* kb, const void* ka, const void* tab
   rfhe_ks_mac_kernel<<<grid, kMacThreads, 0, (cudaStream_t)stream>>>(
       (const ulonglong2*)dig, (const ulonglong2*)kb, (const ulonglong2*)ka,
       (const uint32_t*)tab, (ulonglong2*)out, n_used, n_lim, key_rows, pairs);
+  return (int)cudaGetLastError();
+}
+
+// MODDOWN's lift (rfhe_md_lift_kernel above): ck B rows of n words, row b at
+// ck + b·ck_batch words; delta (B, nk, n).  Every pointer 16-byte aligned,
+// n and ck_batch even.
+int rfhe_md_lift(const void* ck, const void* tab, void* delta, int B, int nk, int n,
+                 long long ck_batch, void* stream) {
+  if (n <= 0 || n % 2 != 0 || nk <= 0 || nk > 65535 || B <= 0 || B > 65535 || ck_batch % 2)
+    return (int)cudaErrorInvalidValue;
+  const int pairs = n / 2;
+  const dim3 grid((pairs + kMdThreads - 1) / kMdThreads, nk, B);
+  rfhe_md_lift_kernel<<<grid, kMdThreads, 0, (cudaStream_t)stream>>>(
+      (const ulonglong2*)ck, (const uint32_t*)tab, (ulonglong2*)delta, nk, pairs, ck_batch / 2);
+  return (int)cudaGetLastError();
+}
+
+// MODDOWN's scale (rfhe_md_scale_kernel above): kept limb i of batch b at
+// kept + b·kept_batch + i·kept_limb words; dnt and out (B, nk, n).  Every
+// pointer 16-byte aligned, n and both strides even.
+int rfhe_md_scale(const void* kept, const void* dnt, const void* tab, void* out, int B, int nk,
+                  int n, long long kept_batch, long long kept_limb, void* stream) {
+  if (n <= 0 || n % 2 != 0 || nk <= 0 || nk > 65535 || B <= 0 || B > 65535 ||
+      kept_batch % 2 || kept_limb % 2)
+    return (int)cudaErrorInvalidValue;
+  const int pairs = n / 2;
+  const dim3 grid((pairs + kMdThreads - 1) / kMdThreads, nk, B);
+  rfhe_md_scale_kernel<<<grid, kMdThreads, 0, (cudaStream_t)stream>>>(
+      (const ulonglong2*)kept, (const ulonglong2*)dnt, (const uint32_t*)tab, (ulonglong2*)out,
+      nk, pairs, kept_batch / 2, kept_limb / 2);
   return (int)cudaGetLastError();
 }
 

@@ -300,8 +300,9 @@ def keyswitch(d_coeff: torch.Tensor, ksk: KeySwitchKey, level: int,
     phases BASECONV (the digits), NTT, MULTEVK (`multevk`: the MAC against
     the key's rows and the digit sum) and MODDOWN; inside MODDOWN each
     `drop_limb` records `spans.MODDOWN_PHASES`: MD_INTT (the special limb's
-    inverse NTT), MD_LIFT (`lift_to_limbs`, and BGV's t-shift), MD_NTT (δ's
-    forward NTT) and MD_SCALE (`sub_mod` and `mul_mod_shoup`), read by the
+    inverse NTT), MD_LIFT (the centred lift, `rfhe_md_lift_kernel` on the
+    card, and BGV's t-shift), MD_NTT (δ's forward NTT) and MD_SCALE (the
+    subtract and Shoup scale, `rfhe_md_scale_kernel` on the card), read by the
     benchmark's `ks_moddown_ntt_device_ms_per_circuit` (MD_INTT + MD_NTT)
     and `ks_moddown_residue_device_ms_per_circuit` (MD_LIFT + MD_SCALE)."""
     L = n_ct_limbs

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..numth import barrett_constants, mod_inv, shoup_precompute
+from ..ops import ntt_cuda
 from ..ops.modarith import (
     add_mod, barrett_word, mont_mul, mul_mod_shoup, neg_mod, reduce_mod, sub_mod,
 )
@@ -217,20 +218,65 @@ def drop_limb_lifted(kept: torch.Tensor, ck: torch.Tensor, src_k: int, keep: Seq
     """`drop_limb` given the dropped row's coefficients ck (..., N) and the
     kept rows (..., len(keep), N): what each kept limb needs of the dropped
     one, so that a rank holding some of the limbs computes their rows alone
-    (parallel/sharded_ckks.py).  `phase` as in `drop_limb`, from MD_LIFT on."""
+    (parallel/sharded_ckks.py).  `phase` as in `drop_limb`, from MD_LIFT on.
+    On the card MD_LIFT and MD_SCALE are one kernel each (`moddown_lift`,
+    `moddown_scale`); BGV's t-shift stays a plain `sub_mod` after the lift."""
     phase("MD_LIFT")
-    delta = lift_to_limbs(ck, src_k, keep, ctx, centered=True)
-    keep_idx = ctx.index(keep)
-    q_lo = ctx.plan.tables.q[keep_idx][:, None]
+    delta = moddown_lift(ck, src_k, keep, ctx)
     if t is not None:
         shift = bgv_lift_shift(bgv_lift_residue(ck, ctx.moduli[src_k], t), src_k, keep, t, ctx)
-        delta = sub_mod(delta, shift, q_lo)
+        delta = sub_mod(delta, shift, ctx.plan.tables.q[ctx.index(keep)][:, None])
     phase("MD_NTT")
     delta_ntt = ctx.plan.take(keep).fwd(delta)
     phase("MD_SCALE")
-    num = sub_mod(kept, delta_ntt, q_lo)
-    return mul_mod_shoup(num, ctx.qk_inv[src_k, keep_idx][:, None],
-                         ctx.qk_inv_shoup[src_k, keep_idx][:, None], q_lo)
+    return moddown_scale(kept, delta_ntt, src_k, keep, ctx)
+
+
+def moddown_lift(ck: torch.Tensor, src_k: int, keep: Sequence[int],
+                 ctx: RnsContext) -> torch.Tensor:
+    """MD_LIFT: the dropped row's coefficients ck (..., N) to their centred
+    lift mod each kept modulus, (..., len(keep), N).  On the card one launch
+    of `rfhe_md_lift_kernel` (`ntt_cuda.md_lift`); on the CPU
+    `lift_to_limbs(..., centered=True)`.  Both give the same words for ck
+    in [0, q_src)."""
+    if ck.device.type != "cuda":
+        return lift_to_limbs(ck, src_k, keep, ctx, centered=True)
+    return ntt_cuda.md_lift(ck, _md_table(ctx, src_k, keep), len(keep))
+
+
+def moddown_scale(kept: torch.Tensor, delta_ntt: torch.Tensor, src_k: int,
+                  keep: Sequence[int], ctx: RnsContext) -> torch.Tensor:
+    """MD_SCALE: (kept − δ̂)·q_src⁻¹ mod q_i for the kept rows and δ's
+    transform, (..., len(keep), N) each.  On the card one launch of
+    `rfhe_md_scale_kernel` (`ntt_cuda.md_scale`), which reads the kept rows
+    in place; on the CPU `moddown_scale_plain`.  Both give the same words
+    for canonical residues."""
+    if kept.device.type != "cuda":
+        return moddown_scale_plain(kept, delta_ntt, src_k, keep, ctx)
+    return ntt_cuda.md_scale(kept, delta_ntt, _md_table(ctx, src_k, keep))
+
+
+def moddown_scale_plain(kept: torch.Tensor, delta_ntt: torch.Tensor, src_k: int,
+                        keep: Sequence[int], ctx: RnsContext) -> torch.Tensor:
+    """`moddown_scale` in plain PyTorch: `sub_mod`, then `mul_mod_shoup` by
+    q_src⁻¹ mod q_i."""
+    keep_idx = ctx.index(keep)
+    q = ctx.plan.tables.q[keep_idx][:, None]
+    return mul_mod_shoup(sub_mod(kept, delta_ntt, q), ctx.qk_inv[src_k, keep_idx][:, None],
+                         ctx.qk_inv_shoup[src_k, keep_idx][:, None], q)
+
+
+def _md_table(ctx: RnsContext, src_k: int, keep: Sequence[int]) -> torch.Tensor:
+    """`ntt_cuda.md_lift` and `md_scale`'s table on the device, built once per
+    (src_k, keep): ⌊q_src/2⌋, then for the kept moduli q_i, q_src mod q_i,
+    ⌊2^32/q_i⌋, q_src⁻¹ mod q_i and its Shoup word (`RnsContext.make`'s)."""
+    def make():
+        q_src, qs = ctx.moduli[src_k], [ctx.moduli[i] for i in keep]
+        inv = [mod_inv(q_src % q, q) for q in qs]
+        words = ([q_src // 2] + qs + [q_src % q for q in qs] + [(1 << 32) // q for q in qs]
+                 + inv + [shoup_precompute(w, q) for w, q in zip(inv, qs)])
+        return torch.from_numpy(np.array(words, dtype=np.uint32).view(np.int32)).to(ctx.device)
+    return ctx.cached(("moddown", src_k, tuple(keep)), make)
 
 
 def rescale(p: RnsPoly, ctx: RnsContext) -> RnsPoly:

@@ -46,11 +46,15 @@ ran.  This module also stands where the reference's `utils/compilecache.py`
 does: the kernel library is built once per checkout and source, into
 `build/rfhe_tpu_torch/`.
 
-The library also holds two kernels that are no transform: `rfhe_span_mark`
-(trace/spans.py) and `rfhe_ks_mac_kernel`, the keyswitch's key product and
-digit sum (`ks_mac`, called by `fhe/keys.py:multevk`).  `KERNELS.ks_mac` counts
-the MAC's launches by (digits, limbs, n) the same replay-aware way, apart from
-the transforms' counters (which the NTT metrics read).
+The library also holds four kernels that are no transform: `rfhe_span_mark`
+(trace/spans.py), `rfhe_ks_mac_kernel`, the keyswitch's key product and
+digit sum (`ks_mac`, called by `fhe/keys.py:multevk`), and
+`rfhe_md_lift_kernel` and `rfhe_md_scale_kernel`, a `drop_limb`'s centred
+lift and its subtract and scale (`md_lift`, `md_scale`, called by
+`fhe/rns.py:drop_limb_lifted`).  `KERNELS.ks_mac` counts the MAC's launches by
+(digits, limbs, n), `KERNELS.md_lift` and `KERNELS.md_scale` theirs by
+(batch, kept limbs, n), the same replay-aware way, apart from the transforms'
+counters (which the NTT metrics read).
 """
 from __future__ import annotations
 
@@ -269,6 +273,8 @@ class NttKernels:
         self.by_kernels = dict.fromkeys(KERNEL_SETS, 0)   # transforms, by the kernels that ran
         self.by_shape: dict = {}                  # transforms, by (form, batch, L, n)
         self.ks_mac: dict = {}                    # rfhe_ks_mac_kernel, by (n_used, n_lim, n)
+        self.md_lift: dict = {}                   # rfhe_md_lift_kernel, by (batch, nk, n)
+        self.md_scale: dict = {}                  # rfhe_md_scale_kernel, by (batch, nk, n)
         self._lib: Optional[ctypes.CDLL] = None
 
     def reset_counts(self) -> None:
@@ -277,10 +283,13 @@ class NttKernels:
         self.by_kernels = dict.fromkeys(KERNEL_SETS, 0)
         self.by_shape = {}
         self.ks_mac = {}
+        self.md_lift = {}
+        self.md_scale = {}
 
     # A graph capture runs no kernel but makes the counts of its launches; it
     # takes them back, and every replay adds them (utils/jitcache.py).
-    _COUNTERS = ("launches", "passes", "by_kernels", "by_shape", "ks_mac")
+    _COUNTERS = ("launches", "passes", "by_kernels", "by_shape", "ks_mac", "md_lift",
+                 "md_scale")
 
     def snapshot(self) -> dict:
         return {name: dict(getattr(self, name)) for name in self._COUNTERS}
@@ -329,6 +338,8 @@ class NttKernels:
                 "rfhe_ntt_inv_cluster": [ptr] * 5 + [num] * 7 + [ptr],
                 "rfhe_span_mark_launch": [ptr, ctypes.c_uint64, ctypes.c_uint64, ptr],
                 "rfhe_ks_mac": [ptr] * 5 + [num] * 4 + [ptr],
+                "rfhe_md_lift": [ptr] * 3 + [num] * 3 + [ctypes.c_longlong, ptr],
+                "rfhe_md_scale": [ptr] * 4 + [num] * 3 + [ctypes.c_longlong] * 2 + [ptr],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
@@ -426,4 +437,89 @@ def ks_mac(dig: torch.Tensor, kb: torch.Tensor, ka: torch.Tensor,
         raise RuntimeError(f"rfhe_ks_mac launch failed: cudaError {rc} "
                            f"(digits {tuple(dig.shape)}, keys {tuple(kb.shape)})")
     KERNELS.ks_mac[n_used, n_lim, n] = KERNELS.ks_mac.get((n_used, n_lim, n), 0) + 1
+    return out
+
+
+def _batch_stride(t: torch.Tensor, inner: int, what: str) -> int:
+    """The stride in words of t's dims before its last `inner`, read as one
+    batch axis: they must step evenly (the view data[..., :nk, :] of a
+    contiguous tensor does), dims of size 1 aside.  0 for a batch of one."""
+    stride = expect = 0
+    for size, step in reversed(list(zip(t.shape[:-inner], t.stride()[:-inner]))):
+        if size == 1:
+            continue
+        if expect and step != expect:
+            raise ValueError(f"{what}: leading dims {tuple(t.shape)} with strides "
+                             f"{t.stride()} are not one evenly strided batch")
+        stride = stride or step
+        expect = step * size
+    return stride
+
+
+def _md_checks(name: str, table: torch.Tensor, nk: int, **tensors) -> torch.device:
+    """What `md_lift` and `md_scale` check of every argument: int64 words on
+    the card beside an int32 table of 1 + 5·nk words, rows of an even number
+    of coefficients read 16 bytes at a time from 16-byte boundaries."""
+    device = table.device
+    for what, t in (*tensors.items(), ("table", table)):
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{name}: {what} must lie on the card beside the table, got {t.device}")
+        if t.dtype != (torch.int32 if what == "table" else torch.int64):
+            raise ValueError(f"{name} takes int64 words and an int32 table, got {what} {t.dtype}")
+        if what != "table" and (t.data_ptr() % 16 or t.stride(-1) != 1 or t.shape[-1] % 2
+                                or any(s % 2 for s in t.stride()[:-1])):
+            raise ValueError(f"{name} reads {what} 16 bytes at a time: it must start on a "
+                             f"16-byte boundary with unit, even-length rows and even strides, "
+                             f"got shape {tuple(t.shape)}, strides {t.stride()}")
+    if not table.is_contiguous() or table.numel() != 1 + 5 * nk:
+        raise ValueError(f"{name}: table of {table.numel()} words for {nk} limbs")
+    return device
+
+
+def _md_launch(counter: dict, entry: str, shape: tuple, device: torch.device, *args) -> None:
+    """Launch `entry` on the current stream, raise on a refused launch, count it."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(KERNELS.lib(), entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {rc} (shape {shape})")
+    counter[shape] = counter.get(shape, 0) + 1
+
+
+def md_lift(ck: torch.Tensor, table: torch.Tensor, nk: int) -> torch.Tensor:
+    """MODDOWN's lift: the dropped row's coefficients ck (..., n), canonical
+    mod q_s, to their centred lift mod each of the nk kept limbs, (..., nk,
+    n) contiguous int64 (`fhe/rns.py:lift_to_limbs`'s words, centred).  ck's
+    rows are read through their stride; `table` is `fhe/rns.py:_md_table`'s.
+    Launches on the current stream, counted in `KERNELS.md_lift` by (batch,
+    nk, n)."""
+    device = _md_checks("md_lift", table, nk, ck=ck)
+    n = ck.shape[-1]
+    batch = ck.numel() // n if n else 0
+    delta = torch.empty((*ck.shape[:-1], nk, n), dtype=torch.int64, device=device)
+    if batch:
+        _md_launch(KERNELS.md_lift, "rfhe_md_lift", (batch, nk, n), device, ck.data_ptr(),
+                   table.data_ptr(), delta.data_ptr(), batch, nk, n,
+                   _batch_stride(ck, 1, "md_lift"))
+    return delta
+
+
+def md_scale(kept: torch.Tensor, delta_ntt: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """MODDOWN's subtract and scale: (kept − δ̂)·q_s⁻¹ mod q_i for kept and
+    δ̂ (..., nk, n) of canonical words, a new contiguous tensor
+    (`fhe/rns.py:moddown_scale_plain`'s words).  kept is read in place
+    through its strides (the view data[..., :nk, :]); δ̂ is contiguous.
+    Launches on the current stream, counted in `KERNELS.md_scale` by (batch,
+    nk, n)."""
+    if kept.shape != delta_ntt.shape or kept.dim() < 2 or not delta_ntt.is_contiguous():
+        raise ValueError(f"md_scale: kept {tuple(kept.shape)} and a contiguous δ̂ of the same "
+                         f"shape, got {tuple(delta_ntt.shape)}")
+    nk, n = kept.shape[-2:]
+    device = _md_checks("md_scale", table, nk, kept=kept, delta_ntt=delta_ntt)
+    batch = kept.numel() // (nk * n) if nk * n else 0
+    out = torch.empty_like(delta_ntt)
+    if batch:
+        _md_launch(KERNELS.md_scale, "rfhe_md_scale", (batch, nk, n), device, kept.data_ptr(),
+                   delta_ntt.data_ptr(), table.data_ptr(), out.data_ptr(), batch, nk, n,
+                   _batch_stride(kept, 2, "md_scale"), kept.stride(-2))
     return out

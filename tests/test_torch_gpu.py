@@ -732,3 +732,162 @@ def test_ks_mac_counts_one_launch_per_rotation_replay(cuda):
         assert all(torch.equal(x.data, y.data) for x, y in zip(got.c, want.c))
     (jit,) = [j for key, j in ctx._jits.items() if key[0] == "galois"]
     assert len(jit.graphs) == 1 and jit.graphs[0].replays == 2
+
+
+# ---------------------------------------------------------------------------
+# MODDOWN's kernels (csrc/ntt.cu:rfhe_md_lift_kernel, rfhe_md_scale_kernel;
+# fhe/rns.py:moddown_lift, moddown_scale)
+# ---------------------------------------------------------------------------
+
+_BGV_T = 786433
+# (ring, prime bit sizes, dropped modulus, kept moduli, batched, t)
+_MD_CASES = {
+    **{f"dnum=3 nk={21 + k}": (65536, _CKKS_BITS + [30] * 7, 21 + k, list(range(21 + k)), True,
+                               None) for k in range(6, -1, -1)},
+    "per-limb": (65536, _CKKS_BITS + [30], 21, list(range(21)), True, None),
+    "rescale": (65536, _CKKS_BITS + [30], 20, list(range(20)), False, None),
+    "BGV keyswitch": (16384, [30] * 10 + [31], 10, list(range(10)), True, _BGV_T),
+    "BGV mod_switch_to_next": (16384, [30] * 10 + [31], 9, list(range(9)), True, _BGV_T),
+}
+
+
+def _md_inputs(ctx, src_k, keep, batched, cuda):
+    """Canonical NTT-domain rows for `keep` then src_k, the dropped row's
+    coefficients ck with the edge words 0, q_src//2, q_src//2 + 1, q_src − 1
+    first, and a δ̂ whose first words pair 0 and q_i − 1 with the kept
+    rows' 0 and q_i − 1."""
+    from rfhe_tpu_torch.fhe import rns
+    nk, n = len(keep), ctx.n
+    q = ctx.plan.q_arr[keep + [src_k]][:, None]
+    g = torch.Generator(device=cuda).manual_seed(n + nk)
+    shape = ((2,) if batched else ()) + (nk + 1, n)
+    data = torch.randint(0, 1 << 62, shape, device=cuda, generator=g) % q
+    zero = torch.zeros_like(q)
+    data[..., :4] = torch.cat([zero, zero, q - 1, q - 1], dim=1)
+    ck = rns.limb_plan(ctx, src_k).inv(data[..., nk:nk + 1, :].contiguous())[..., 0, :]
+    q_src = ctx.moduli[src_k]
+    ck[..., :4] = torch.tensor([0, q_src // 2, q_src // 2 + 1, q_src - 1], device=cuda)
+    dnt = torch.randint(0, 1 << 62, shape[:-2] + (nk, n), device=cuda, generator=g) % q[:nk]
+    dnt[..., :4] = torch.cat([zero, q - 1, zero, q - 1], dim=1)[:nk]
+    return data, ck, dnt
+
+
+def _drop_limb_plain(data, src_k, keep, ctx, t):
+    """`drop_limb` composed of the plain versions on the card (its NTTs the
+    kernels, which the tests above hold)."""
+    from rfhe_tpu_torch.fhe import rns
+    from rfhe_tpu_torch.ops.modarith import sub_mod
+    nk = len(keep)
+    ck = rns.limb_plan(ctx, src_k).inv(data[..., nk:nk + 1, :].contiguous())[..., 0, :]
+    delta = rns.lift_to_limbs(ck, src_k, keep, ctx, centered=True)
+    if t is not None:
+        shift = rns.bgv_lift_shift(rns.bgv_lift_residue(ck, ctx.moduli[src_k], t), src_k, keep,
+                                   t, ctx)
+        delta = sub_mod(delta, shift, ctx.plan.tables.q[ctx.index(keep)][:, None])
+    return rns.moddown_scale_plain(data[..., :nk, :], ctx.plan.take(keep).fwd(delta), src_k,
+                                   keep, ctx)
+
+
+@pytest.mark.parametrize("case", list(_MD_CASES))
+def test_moddown_kernels_match_plain(cuda, case):
+    """One launch of each MODDOWN kernel equals its plain version bit for
+    bit: the seven dnum=3 `drop_limb`s (2, 27 ... 21, 65536), the per-limb
+    (2, 21, 65536), the batchless `rescale` (20 kept of 21), BGV's keyswitch
+    (31-bit special above 30-bit limbs) and `mod_switch_to_next` at
+    N=16384; kept read through the strided view data[..., :nk, :]; the edge
+    words of `_md_inputs`, q_src above and below q_i (q0 and the specials
+    are 30 bits, the other limbs 28).  The whole `drop_limb`, BGV's t-shift
+    between the kernels included, equals the plain composition."""
+    from rfhe_tpu_torch.fhe import rns
+    from rfhe_tpu_torch.fhe.params import make_prime_chain
+    n, bits, src_k, keep, batched, t = _MD_CASES[case]
+    ctx = rns.RnsContext.make(n, make_prime_chain(n, bits), cuda)
+    nk = len(keep)
+    data, ck, dnt = _md_inputs(ctx, src_k, keep, batched, cuda)
+    kept = data[..., :nk, :]
+    assert kept.stride()[-2:] == (n, 1) and kept.is_contiguous() != batched
+    before = ntt_cuda.KERNELS.snapshot()
+    delta = rns.moddown_lift(ck, src_k, keep, ctx)
+    scaled = rns.moddown_scale(kept, dnt, src_k, keep, ctx)
+    counts = ntt_cuda.KERNELS.since(before)
+    shape = (2 if batched else 1, nk, n)
+    assert counts["md_lift"] == {shape: 1} and counts["md_scale"] == {shape: 1}
+    assert torch.equal(delta, rns.lift_to_limbs(ck, src_k, keep, ctx, centered=True))
+    assert torch.equal(scaled, rns.moddown_scale_plain(kept, dnt, src_k, keep, ctx))
+    assert torch.equal(rns.drop_limb(data, src_k, keep, ctx, t),
+                       _drop_limb_plain(data, src_k, keep, ctx, t))
+
+
+def test_moddown_kernels_read_any_even_strides(cuda):
+    """ck rows and kept rows at other batch and limb strides (a slice of a
+    wider tensor, every other limb) give the plain words."""
+    from rfhe_tpu_torch.fhe import rns
+    from rfhe_tpu_torch.fhe.params import make_prime_chain
+    n, keep, src_k = 16384, [0, 1, 2, 3], 4
+    ctx = rns.RnsContext.make(n, make_prime_chain(n, [28, 30, 28, 30, 30]), cuda)
+    data, ck, dnt = _md_inputs(ctx, src_k, keep, True, cuda)
+    wide = torch.zeros((2, 3, 2 * len(keep), n), dtype=torch.int64, device=cuda)
+    wide[:, 1, ::2] = data[:, :4]
+    kept = wide[:, 1, ::2]
+    rows = torch.zeros((2, 3, n), dtype=torch.int64, device=cuda)
+    rows[:, 2] = ck
+    assert kept.stride() == (6 * len(keep) * n, 2 * n, 1) and rows[:, 2].stride() == (3 * n, 1)
+    assert torch.equal(rns.moddown_lift(rows[:, 2], src_k, keep, ctx),
+                       rns.lift_to_limbs(ck, src_k, keep, ctx, centered=True))
+    assert torch.equal(rns.moddown_scale(kept, dnt, src_k, keep, ctx),
+                       rns.moddown_scale_plain(data[:, :4], dnt, src_k, keep, ctx))
+
+
+def test_moddown_wrappers_refuse(cuda):
+    """The bindings raise on CPU tensors, the wrong dtype, a pointer off a
+    16-byte boundary, a non-contiguous δ̂, a table of the wrong length and
+    odd strides, before anything launches."""
+    from rfhe_tpu_torch.fhe import rns
+    from rfhe_tpu_torch.fhe.params import make_prime_chain
+    n, keep, src_k = 16384, [0, 1, 2], 3
+    ctx = rns.RnsContext.make(n, make_prime_chain(n, [30] * 4), cuda)
+    data, ck, dnt = _md_inputs(ctx, src_k, keep, True, cuda)
+    table, kept = rns._md_table(ctx, src_k, keep), data[:, :3]
+    before = ntt_cuda.KERNELS.snapshot()
+    bad_lift = [(ck.cpu(), table), (ck, table.cpu()), (ck.to(torch.int32), table),
+                (ck.reshape(-1)[1:1 + n], table), (ck, table[1:]), (ck[:, :-1], table),
+                (ck.as_strided((2, n - 2), (n - 1, 1)), table)]
+    for args in bad_lift:
+        with pytest.raises(ValueError):
+            ntt_cuda.md_lift(*args, len(keep))
+    bad_scale = [(kept.cpu(), dnt.cpu(), table.cpu()), (kept, dnt.to(torch.int32), table),
+                 (kept, dnt.transpose(0, 1).contiguous().transpose(0, 1), table),
+                 (kept, dnt, table[:-1]), (kept, dnt[:, :2], table),
+                 (data.reshape(-1)[1:1 + kept.numel()].view(kept.shape), dnt, table)]
+    for args in bad_scale:
+        with pytest.raises(ValueError):
+            ntt_cuda.md_scale(*args)
+    after = ntt_cuda.KERNELS.since(before)
+    assert not after["md_lift"] and not after["md_scale"]
+
+
+def test_moddown_kernels_count_seven_per_dnum3_rotation_replay(cuda):
+    """A graphed dnum=3 rotation at N=65536 (21 limbs, 7 special primes)
+    launches each MODDOWN kernel 7 times, once per `drop_limb` at (2, 27 ...
+    21, n): the eager warm-up counts 7, its capture none, every replay 7."""
+    import numpy as np
+    from rfhe_tpu_torch.fhe import CkksContext, CkksParams
+    from rfhe_tpu_torch.utils.jitcache import eager
+    ctx = CkksContext(CkksParams.make(n=65536, levels=20, q0_bits=30, scale_bits=28), seed=5,
+                      dnum=3, device=cuda)
+    ct = ctx.encrypt(*ctx.encode(np.random.default_rng(5).uniform(-1, 1, 32768) + 0j))
+    ctx.galois_key(ctx.rotation_galois_element(1))
+    k = ntt_cuda.KERNELS
+    want_counts = {(2, nk, 65536): 1 for nk in range(21, 28)}
+    before = k.snapshot()
+    with eager():
+        want = ctx.rotate(ct, 1)
+    counts = k.since(before)
+    assert counts["md_lift"] == want_counts and counts["md_scale"] == want_counts
+    for _ in range(3):                      # capture, then two replays
+        before = k.snapshot()
+        got = ctx.rotate(ct, 1)
+        assert k.since(before) == counts
+        assert all(torch.equal(x.data, y.data) for x, y in zip(got.c, want.c))
+    (jit,) = [j for key, j in ctx._jits.items() if key[0] == "galois"]
+    assert len(jit.graphs) == 1 and jit.graphs[0].replays == 2

@@ -183,3 +183,117 @@ def test_ks_mac_words(case):
     table = keys._mac_table(ctx, used, ksk.rows(lim), lim)
     np.testing.assert_array_equal(
         _ks_mac_words(dig.numpy(), ksk.b.numpy(), ksk.a.numpy(), table.numpy()), got.numpy())
+
+
+# ---------------------------------------------------------------------------
+# MODDOWN: the word arithmetic of csrc/ntt.cu:rfhe_md_lift_kernel and
+# rfhe_md_scale_kernel, and drop_limb's plain path on the CPU
+# ---------------------------------------------------------------------------
+
+def _umulhi(a, b):
+    """The high word of a 32 x 32-bit product (both below 2^32: exact in uint64)."""
+    return (a * b) >> np.uint64(32)
+
+
+def _md_words(ck, kept, dnt, table):
+    """The two kernels' words, emulated in numpy uint64 from their table as
+    the kernels hold them, in 32-bit words: the lift's Barrett reduction by
+    ⌊2^32/q⌋ (below 2q, one subtract) and the centring `sub_q`; the scale's
+    `sub_q` and `mul_shoup` (wrapping 32-bit words, exact: the value lies in
+    [0, 2q))."""
+    nk = kept.shape[-2]
+    tab = np.asarray(table).view(np.uint32).astype(np.uint64)
+    half = tab[0]
+    q, qs_mod, m, w, w_shoup = (tab[1 + j * nk:1 + (j + 1) * nk, None] for j in range(5))
+    v = ck.astype(np.uint64)[..., None, :]
+    r = (v - _umulhi(v, m) * q) & M32
+    assert (r < 2 * q).all()
+    r = np.where(r >= q, r - q, r)
+    centred = np.where(r >= qs_mod, r - qs_mod, r + q - qs_mod)
+    delta = np.where(v > half, centred, r)
+    x, d = kept.astype(np.uint64), dnt.astype(np.uint64)
+    num = np.where(x >= d, x - d, x + q - d)
+    s = (num * w - _umulhi(num, w_shoup) * q) & M32
+    assert (s < 2 * q).all()
+    return delta.astype(np.int64), np.where(s >= q, s - q, s).astype(np.int64)
+
+
+def _md_context():
+    """Two 28-bit, two 30-bit and one 31-bit prime at N = 256: a dropped
+    modulus above some kept ones and below others."""
+    from rfhe_tpu_torch.fhe.rns import RnsContext
+    from rfhe_tpu_torch.numth import find_ntt_primes
+    n = 256
+    return RnsContext.make(n, find_ntt_primes(n, 28, 2) + find_ntt_primes(n, 30, 2)
+                           + find_ntt_primes(n, 31, 1), "cpu")
+
+
+def _md_data(ctx, src_k, keep, seed):
+    """(batch 2) rows for `keep` then the row of src_k, canonical, the first
+    words of each row at the edges: kept rows (0, q − 1) paired with the
+    δ̂ words 0 and q − 1 in `_md_words`' tests."""
+    rng = np.random.default_rng(seed)
+    q = np.array([ctx.moduli[i] for i in keep + [src_k]], dtype=np.uint64)[:, None]
+    data = rng.integers(0, 1 << 62, (2, len(keep) + 1, ctx.n), dtype=np.uint64) % q
+    data[:, :, :4] = np.concatenate([np.zeros_like(q), np.zeros_like(q), q - 1, q - 1], axis=1)
+    return _t(data)
+
+
+@pytest.mark.parametrize("src_k", [0, 2, 4], ids=["src-28-bit", "src-30-bit", "src-31-bit"])
+def test_md_words(src_k):
+    """The MODDOWN kernels' word arithmetic (`_md_words`, from the wrapper's
+    own table) equals the plain versions the CPU runs, `moddown_lift` (the
+    centred `lift_to_limbs`) and `moddown_scale` (`moddown_scale_plain`), on
+    the edge words (ck at 0, q_src//2, q_src//2 + 1 and q_src − 1; kept and
+    δ̂ at 0 and q_i − 1) and random ones, with the dropped modulus below,
+    between and above the kept ones, kept read through the strided view
+    data[..., :nk, :]."""
+    from rfhe_tpu_torch.fhe import rns
+    ctx = _md_context()
+    keep = [i for i in range(ctx.L) if i != src_k]
+    data = _md_data(ctx, src_k, keep, src_k)
+    q_src, nk = ctx.moduli[src_k], len(keep)
+    ck = data[:, nk].clone()
+    ck[:, :4] = torch.tensor([0, q_src // 2, q_src // 2 + 1, q_src - 1])
+    kept = data[:, :nk]
+    q = torch.tensor([ctx.moduli[i] for i in keep])[:, None]
+    dnt = (kept + 12345) % q
+    dnt[..., :4] = torch.cat([torch.zeros_like(q), q - 1, torch.zeros_like(q), q - 1], dim=1)
+    table = rns._md_table(ctx, src_k, keep)
+    delta, scaled = _md_words(ck.numpy(), kept.numpy(), dnt.numpy(), table.numpy())
+    np.testing.assert_array_equal(rns.moddown_lift(ck, src_k, keep, ctx).numpy(), delta)
+    np.testing.assert_array_equal(rns.moddown_scale(kept, dnt, src_k, keep, ctx).numpy(), scaled)
+    assert kept.stride()[:2] == ((nk + 1) * ctx.n, ctx.n)
+
+
+@pytest.mark.parametrize("t", [None, 65537], ids=["ckks", "bgv-t"])
+def test_drop_limb_plain_path_on_the_cpu(monkeypatch, t):
+    """On the CPU `drop_limb` keeps the words of the composition it had
+    before the kernels (lift, t-shift, δ's NTT, `sub_mod`, `mul_mod_shoup`
+    written out), batched and batchless, and no CPU tensor reaches the
+    kernels' bindings, which refuse one."""
+    from rfhe_tpu_torch.fhe import rns
+    from rfhe_tpu_torch.ops import ntt_cuda
+    ctx = _md_context()
+    src_k, keep = 4, [0, 1, 2, 3]
+    data = _md_data(ctx, src_k, keep, 7)
+    table, rows = rns._md_table(ctx, src_k, keep), data[:, :4].contiguous()
+    with pytest.raises(ValueError, match="on the card"):
+        ntt_cuda.md_lift(data[:, 4], table, 4)
+    with pytest.raises(ValueError, match="on the card"):
+        ntt_cuda.md_scale(rows, rows, table)
+    for entry in ("md_lift", "md_scale"):
+        monkeypatch.setattr(ntt_cuda, entry, lambda *a: pytest.fail("a CPU tensor reached it"))
+    for d in (data, data[1]):
+        ck = rns.limb_plan(ctx, src_k).inv(d[..., 4:5, :].contiguous())[..., 0, :]
+        keep_idx = ctx.index(keep)
+        q = ctx.plan.tables.q[keep_idx][:, None]
+        delta = rns.lift_to_limbs(ck, src_k, keep, ctx, centered=True)
+        if t is not None:
+            shift = rns.bgv_lift_shift(rns.bgv_lift_residue(ck, ctx.moduli[src_k], t),
+                                       src_k, keep, t, ctx)
+            delta = modarith.sub_mod(delta, shift, q)
+        num = modarith.sub_mod(d[..., :4, :], ctx.plan.take(keep).fwd(delta), q)
+        want = modarith.mul_mod_shoup(num, ctx.qk_inv[src_k, keep_idx][:, None],
+                                      ctx.qk_inv_shoup[src_k, keep_idx][:, None], q)
+        assert torch.equal(rns.drop_limb(d, src_k, keep, ctx, t), want)
