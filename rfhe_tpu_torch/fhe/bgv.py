@@ -60,12 +60,15 @@ def _slot_map(n: int) -> np.ndarray:
 def special_primes(params, special_bits: Optional[int] = None,
                    dnum: Optional[int] = None) -> tuple:
     """The keyswitch's special primes of a BGV/BFV chain, as the reference
-    picks them: ⌈L/dnum⌉ NTT primes (one for dnum=None) of special_bits (30
-    at n ≥ 65536, else 31) that are neither in the chain nor t."""
+    picks them: the ⌈L/dnum⌉ largest NTT primes (one for dnum=None) of
+    special_bits (30 at n ≥ 65536, else 31) that are neither in the chain
+    nor t.  The reference looks among the ⌈L/dnum⌉ + 2 largest only, and
+    raises where the chain takes them, as a chain of primes of the special
+    width does; here the search goes on past the chain."""
     if special_bits is None:
         special_bits = 30 if params.n >= 65536 else 31
     n_sp = 1 if dnum is None else -(-params.L // dnum)
-    sps = [p for p in make_prime_chain(params.n, [special_bits] * (n_sp + 2))
+    sps = [p for p in make_prime_chain(params.n, [special_bits] * (n_sp + params.L + 1))
            if p not in params.moduli and p != params.t][:n_sp]
     if len(sps) != n_sp:
         raise ValueError(f"not enough {special_bits}-bit special primes for dnum={dnum}")

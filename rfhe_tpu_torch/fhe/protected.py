@@ -43,11 +43,21 @@ reduces it exactly mod q (the NTT kernels on entry, the dots' products, the
 exact sums, the Shoup rescale), as the reference's do, so outputs and flags
 match the reference's under every fault stage (tests/test_torch_protected.py,
 tests/test_torch_protected_bgv.py).
+
+Traced (`trace/spans.py`), a protected op opens the plain evaluator's spans
+around the same work (PERMUTE and INTT; KEYSWITCH with BASECONV, NTT,
+MULTEVK (the key rows, both products and the digit sums) and MODDOWN; each
+mod-down's MD_INTT, MD_LIFT, MD_NTT and MD_SCALE), and each detector
+family's check as a phase of its own right after the step it guards
+(`spans.CHECK_PHASES`: CHK_PERMUTE, CHK_INTT, CHK_BASECONV, CHK_KS_CORE,
+CHK_MD_INTT, CHK_MD_LIFT, CHK_MD_PROJ, CHK_MD_RANGE).  `dyadic` is computed
+inside `mont_mul_checked` with the products it checks and has no phase.
+Every public op counts the flags it returns (`spans.COUNTS.detector_flags`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +67,7 @@ from ..ops.modarith import add_mod, mont_mul, mul_mod_shoup, sub_mod
 from ..ops.modring import sum_mod
 from ..protect.checks import mont_mul_checked
 from ..protect.ntt_guard import NttGuard
+from ..trace import spans
 from ..utils.jitcache import HoistedJit, by_reference, hoisted_jit
 from .ckks import Ciphertext, CkksContext
 from .keys import _digit_groups, _sum_digits, compute_digits
@@ -91,6 +102,12 @@ def _check_set(checks, universe):
     if bad:
         raise ValueError(f"unknown detector families {sorted(bad)}; valid: {sorted(universe)}")
     return cs
+
+
+def _counted(result: tuple) -> tuple:
+    """A protected op's (output, flags), its flags counted in `spans.COUNTS`."""
+    spans.COUNTS.detector_flags += len(result[1])
+    return result
 
 
 def all_ok(flags: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -207,68 +224,88 @@ class ProtectedCkks:
         """The hybrid keyswitch of `keys.keyswitch` with its detectors: the
         digits with their appended checksum, the KS-core projection over
         digits → NTT → ⊙key → Σ, and the guarded mod-down by each special
-        prime, last to first."""
+        prime, last to first.  Traced, it opens the plain keyswitch's span
+        and phases around the same work, and each check as the phase after
+        the step it guards (`spans.CHECK_PHASES`)."""
         ctx, L = self.ckks.ctx, self.ckks.L
         sp_idx = list(range(L, len(ctx.moduli)))
         active = level + 1
         on_ecc = self._on("baseconv")
-        if on_ecc:
-            dig, used, lim, refs = compute_digits(d, level, ctx, L, self.ckks.dnum, with_ecc=True)
-        else:
-            dig, used, lim = compute_digits(d, level, ctx, L, self.ckks.dnum)
-        if fault is not None and fault.stage == "digits":
-            dig = torch.cat((_flip2(dig[0], fault.limb, fault.idx, fault.bit)[None], dig[1:]))
-        sub_plan = ctx.plan.take(lim)
-        q1 = sub_plan.q_arr
-        if on_ecc:
-            flags["baseconv"] = sum_mod(dig, q1, axis=-1) == refs
-        g_sub = self.guard.take(lim)
-        q_lim, rinv_lim = sub_plan.qb(1), sub_plan.rinvb(1)
-        dig_ntt = sub_plan.fwd(dig)
-        if fault is not None and fault.stage == "digits_ntt":
-            dig_ntt = torch.cat((_flip2(dig_ntt[0], fault.limb, fault.idx, fault.bit)[None],
-                                 dig_ntt[1:]))
-        lim_idx, used_idx = ctx.index(lim), ctx.index(used)
-        kb = ksk_b.index_select(0, used_idx).index_select(1, lim_idx)
-        ka = ksk_a.index_select(0, used_idx).index_select(1, lim_idx)
-        t0 = mont_mul(dig_ntt, kb, q_lim, rinv_lim)
-        t1 = mont_mul(dig_ntt, ka, q_lim, rinv_lim)
-        if fault is not None and fault.stage == "prod0":
-            t0 = torch.cat((_flip2(t0[0], fault.limb, fault.idx, fault.bit)[None], t0[1:]))
-        acc0, acc1 = _sum_digits(t0, q_lim), _sum_digits(t1, q_lim)
-        if fault is not None and fault.stage == "acc0":
-            acc0 = _flip2(acc0, fault.limb, fault.idx, fault.bit)
-        # KS CORE: the accumulators (as stored, faulted or not) against the
-        # digits through the transposed probe
-        if self._on("ks_core"):
-            la = g_sub.dot(g_sub.phi, acc0)
-            lb = g_sub.dot(g_sub.phi, acc1)
-            lhs = add_mod(la, mul_mod_shoup(lb, probe.rho, probe.rho_shoup, q1), q1)
-            rhs = sum_mod(g_sub.dot(probe.V, dig), q1, axis=0)
-            flags["ks_core"] = lhs == rhs
-        acc = torch.stack([acc0, acc1])
-        for k_i in range(len(sp_idx) - 1, -1, -1):
-            keep = list(range(active)) + sp_idx[:k_i]
-            acc = self._drop_limb_protected(acc, sp_idx[k_i], keep, flags,
-                                            f"md{k_i}" if k_i else "md", self._ks_t)
+        with spans.phases(spans.KEYSWITCH) as phase:
+            phase("BASECONV")
+            if on_ecc:
+                dig, used, lim, refs = compute_digits(d, level, ctx, L, self.ckks.dnum,
+                                                      with_ecc=True)
+            else:
+                dig, used, lim = compute_digits(d, level, ctx, L, self.ckks.dnum)
+            if fault is not None and fault.stage == "digits":
+                dig = torch.cat((_flip2(dig[0], fault.limb, fault.idx, fault.bit)[None],
+                                 dig[1:]))
+            sub_plan = ctx.plan.take(lim)
+            q1 = sub_plan.q_arr
+            if on_ecc:
+                phase("CHK_BASECONV")
+                flags["baseconv"] = sum_mod(dig, q1, axis=-1) == refs
+            phase("NTT")
+            g_sub = self.guard.take(lim)
+            q_lim, rinv_lim = sub_plan.qb(1), sub_plan.rinvb(1)
+            dig_ntt = sub_plan.fwd(dig)
+            if fault is not None and fault.stage == "digits_ntt":
+                dig_ntt = torch.cat((_flip2(dig_ntt[0], fault.limb, fault.idx, fault.bit)[None],
+                                     dig_ntt[1:]))
+            phase("MULTEVK")
+            lim_idx, used_idx = ctx.index(lim), ctx.index(used)
+            kb = ksk_b.index_select(0, used_idx).index_select(1, lim_idx)
+            ka = ksk_a.index_select(0, used_idx).index_select(1, lim_idx)
+            t0 = mont_mul(dig_ntt, kb, q_lim, rinv_lim)
+            t1 = mont_mul(dig_ntt, ka, q_lim, rinv_lim)
+            if fault is not None and fault.stage == "prod0":
+                t0 = torch.cat((_flip2(t0[0], fault.limb, fault.idx, fault.bit)[None], t0[1:]))
+            acc0, acc1 = _sum_digits(t0, q_lim), _sum_digits(t1, q_lim)
+            if fault is not None and fault.stage == "acc0":
+                acc0 = _flip2(acc0, fault.limb, fault.idx, fault.bit)
+            acc = torch.stack([acc0, acc1])
+            # KS CORE: the accumulators (as stored, faulted or not) against
+            # the digits through the transposed probe
+            if self._on("ks_core"):
+                phase("CHK_KS_CORE")
+                la = g_sub.dot(g_sub.phi, acc0)
+                lb = g_sub.dot(g_sub.phi, acc1)
+                lhs = add_mod(la, mul_mod_shoup(lb, probe.rho, probe.rho_shoup, q1), q1)
+                rhs = sum_mod(g_sub.dot(probe.V, dig), q1, axis=0)
+                flags["ks_core"] = lhs == rhs
+            phase("MODDOWN")
+            with spans.phases() as md:
+                for k_i in range(len(sp_idx) - 1, -1, -1):
+                    keep = list(range(active)) + sp_idx[:k_i]
+                    acc = self._drop_limb_protected(acc, sp_idx[k_i], keep, flags,
+                                                    f"md{k_i}" if k_i else "md", self._ks_t, md)
         if fault is not None and fault.stage == "ks_out":
             acc = torch.stack((_flip2(acc[0], fault.limb, fault.idx, fault.bit), acc[1]))
         return acc[0], acc[1]
 
     def _drop_limb_protected(self, data: torch.Tensor, src_k: int, keep, flags: Dict,
-                             tag: str, t: Optional[int] = None) -> torch.Tensor:
+                             tag: str, t: Optional[int] = None,
+                             phase: Callable[[str], None] = spans.OFF) -> torch.Tensor:
         """`rns.drop_limb` with the guard on the special limb's inverse NTT,
         the centered lift's checksum and the composite rescale projection;
         data (..., nk+1, N).  t given (BGV): δ also takes the t-correction
         q_src·[r]_c, and the checksum tracks both exact sums
         (`protected.py:338-385`).  The lift checksum is vectorized over the
-        kept limbs (the reference loops over them, which jit fuses)."""
+        kept limbs (the reference loops over them, which jit fuses).
+        `phase` (a `spans.phases` of the caller's) is called with each of
+        `spans.MODDOWN_PHASES` as its step begins, and with each check's
+        phase (CHK_MD_INTT, CHK_MD_LIFT, CHK_MD_PROJ, CHK_MD_RANGE) after
+        the step it guards."""
         ctx = self.ckks.ctx
         nk = len(keep)
+        phase("MD_INTT")
         src_in = data[..., nk:nk + 1, :].contiguous()
         src_row = limb_plan(ctx, src_k).inv(src_in)
         if self._on("md_intt"):
+            phase("CHK_MD_INTT")
             flags[f"{tag}_intt"] = self.guard.take([src_k]).check_inv(src_in, src_row)
+        phase("MD_LIFT")
         ck = src_row[..., 0, :]
         q_src = ctx.moduli[src_k]
         delta = lift_to_limbs(ck, src_k, keep, ctx, centered=True)
@@ -278,28 +315,31 @@ class ProtectedCkks:
             ("drop", src_k, tuple(keep)),
             lambda: tuple(tab[src_k].index_select(0, ctx.index(keep))
                           for tab in (ctx.qk_mod, ctx.qk_inv, ctx.qk_inv_shoup)))
+        q_lo = q_keep[:, None]
+        if t is not None:
+            r = bgv_lift_residue(ck, q_src, t)
+            delta = sub_mod(delta, bgv_lift_shift(r, src_k, keep, t, ctx), q_lo)
         if self._on("md_lift"):
+            phase("CHK_MD_LIFT")
             # Σ δ_i == (S − q_src·n_over) mod q_i, S the exact sum of ck
             s = ck.sum(dim=-1, keepdim=True)
             n_over = (ck > q_src // 2).sum(dim=-1, keepdim=True)
             corr = qk_mod * (n_over % q_keep) % q_keep
             want = sub_mod(s % q_keep, corr, q_keep)
-        q_lo = q_keep[:, None]
-        if t is not None:
-            r = bgv_lift_residue(ck, q_src, t)
-            delta = sub_mod(delta, bgv_lift_shift(r, src_k, keep, t, ctx), q_lo)
-            if self._on("md_lift"):
+            if t is not None:
                 # − q_src·(S_r − t·n_r_over), S_r the exact sum of r
                 s_r = r.sum(dim=-1, keepdim=True) % q_keep
                 n_r = (r > t // 2).sum(dim=-1, keepdim=True) % q_keep
                 s_rc = sub_mod(s_r, t % q_keep * n_r % q_keep, q_keep)
                 want = sub_mod(want, qk_mod * s_rc % q_keep, q_keep)
-        if self._on("md_lift"):
             flags[f"{tag}_lift"] = sum_mod(delta, q_keep, axis=-1) == want
+        phase("MD_NTT")
         delta_ntt = keep_plan.fwd(delta)
+        phase("MD_SCALE")
         num = sub_mod(data[..., :nk, :], delta_ntt, q_lo)
         out = mul_mod_shoup(num, inv_k[:, None], inv_k_s[:, None], q_lo)
         if self._on("md_proj"):
+            phase("CHK_MD_PROJ")
             g_keep = self.guard.take(keep)
             pa = g_keep.dot(g_keep.phi, data[..., :nk, :])
             pd = g_keep.dot(g_keep.vf, delta)
@@ -307,6 +347,7 @@ class ProtectedCkks:
             want = mul_mod_shoup(sub_mod(pa, pd, q_keep), inv_k, inv_k_s, q_keep)
             flags[f"{tag}_proj"] = po == want
         if self._on("md_range"):
+            phase("CHK_MD_RANGE")
             flags[f"{tag}_range"] = torch.all(out < q_lo)
         return out
 
@@ -322,17 +363,22 @@ class ProtectedCkks:
         plan = ctx.plan.slice(active)
         g_act = self.guard.slice(active)
         c0, c1 = ct.c[0].data, ct.c[1].data
-        c0g = c0.index_select(-1, perm)
-        c1g = c1.index_select(-1, perm)
-        if self._on("permute"):
-            flags["permute"] = g_act.dot(g_act.phi, c0g) == g_act.dot(phi_pi, c0)
-        if fault is not None and fault.stage == "c1_perm":
-            c1g = _flip2(c1g, fault.limb, fault.idx, fault.bit)
-        d = plan.inv(c1g)
-        if fault is not None and fault.stage == "intt_out":
-            d = _flip2(d, fault.limb, fault.idx, fault.bit)
-        if self._on("intt"):
-            flags["intt"] = g_act.dot(g_act.phi, d) == g_act.dot(vi_pi, c1)
+        with spans.phases() as phase:                   # traced: trace/spans.py
+            phase("PERMUTE")
+            c0g = c0.index_select(-1, perm)
+            c1g = c1.index_select(-1, perm)
+            if self._on("permute"):
+                phase("CHK_PERMUTE")
+                flags["permute"] = g_act.dot(g_act.phi, c0g) == g_act.dot(phi_pi, c0)
+            if fault is not None and fault.stage == "c1_perm":
+                c1g = _flip2(c1g, fault.limb, fault.idx, fault.bit)
+            phase("INTT")
+            d = plan.inv(c1g)
+            if fault is not None and fault.stage == "intt_out":
+                d = _flip2(d, fault.limb, fault.idx, fault.bit)
+            if self._on("intt"):
+                phase("CHK_INTT")
+                flags["intt"] = g_act.dot(g_act.phi, d) == g_act.dot(vi_pi, c1)
         k0, k1 = self._keyswitch_protected(d, level, ksk.b, ksk.a, probe, flags, fault)
         c0_out = add_mod(c0g, k0, plan.qb(1))
         return Ciphertext([RnsPoly(c0_out, True), RnsPoly(k1, True)], ct.scale,
@@ -347,12 +393,12 @@ class ProtectedCkks:
         pp = self._perm_probe(g, lvl + 1)
         key = ("pgalois", g, lvl, fault.stage if fault else None)
         if fault is None:
-            return self._jit(key, lambda c, k, pr: self._galois_impl(
-                c, k, g, lvl, None, pr, pp))(ct, ksk, probe)
+            return _counted(self._jit(key, lambda c, k, pr: self._galois_impl(
+                c, k, g, lvl, None, pr, pp))(ct, ksk, probe))
         stage = fault.stage
-        return self._jit(key, lambda c, k, pr, li, ix, bi: self._galois_impl(
+        return _counted(self._jit(key, lambda c, k, pr, li, ix, bi: self._galois_impl(
             c, k, g, lvl, Fault(stage, li, ix, bi), pr, pp))(ct, ksk, probe,
-                                                              *self._location(fault))
+                                                              *self._location(fault)))
 
     def rotate(self, ct: Ciphertext, r: int,
                fault: Optional[Fault] = None) -> Tuple[Ciphertext, Dict]:
@@ -376,11 +422,14 @@ class ProtectedCkks:
         if oks:
             flags["dyadic"] = torch.stack(oks)
         d0, d1, d2 = prods[0], add_mod(prods[1], prods[2], qb), prods[3]
-        d2c = plan.inv(d2)
-        if fault is not None and fault.stage == "intt_out":
-            d2c = _flip2(d2c, fault.limb, fault.idx, fault.bit)
-        if self._on("intt"):
-            flags["intt"] = self.guard.slice(level + 1).check_inv(d2, d2c)
+        with spans.phases() as phase:
+            phase("INTT")
+            d2c = plan.inv(d2)
+            if fault is not None and fault.stage == "intt_out":
+                d2c = _flip2(d2c, fault.limb, fault.idx, fault.bit)
+            if self._on("intt"):
+                phase("CHK_INTT")
+                flags["intt"] = self.guard.slice(level + 1).check_inv(d2, d2c)
         k0, k1 = self._keyswitch_protected(d2c, level, kb, ka, probe, flags, fault)
         c0, c1 = add_mod(d0, k0, qb), add_mod(d1, k1, qb)
         return Ciphertext([RnsPoly(c0, True), RnsPoly(c1, True)], scale, correction), flags
@@ -399,10 +448,11 @@ class ProtectedCkks:
                                         pr, lvl, a.scale * b.scale, fault, corr)
 
         if fault is None:
-            return self._jit(key, lambda a, b, k, pr: run(a, b, k, pr, None))(a, b, rlk, probe)
+            return _counted(self._jit(key, lambda a, b, k, pr: run(a, b, k, pr, None))(
+                a, b, rlk, probe))
         stage = fault.stage
-        return self._jit(key, lambda a, b, k, pr, li, ix, bi: run(
-            a, b, k, pr, Fault(stage, li, ix, bi)))(a, b, rlk, probe, *self._location(fault))
+        return _counted(self._jit(key, lambda a, b, k, pr, li, ix, bi: run(
+            a, b, k, pr, Fault(stage, li, ix, bi)))(a, b, rlk, probe, *self._location(fault)))
 
 
 class ProtectedBgv(ProtectedCkks):

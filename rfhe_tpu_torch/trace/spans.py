@@ -26,14 +26,18 @@ one mark (`phases`).  The body of a graphed op runs on the host only at its
 capture, so on the card its spans are timed by the device alone, replay
 after replay; on the CPU they are timed by the host alone.
 
-The counters (`COUNTS`) are always on: integer adds in the graph cache.
+The counters (`COUNTS`) are always on: integer adds in the graph cache and
+in the protected evaluator's public ops.
 
 `snapshot()` / `since(snap)` give, per span name, the closes and
 nanoseconds on each clock, the parent, and the self time (the span's time
 less its children's), computed on read.
 
 The names of the keyswitch's phases are the upstream's kernel lines
-(`[NTT]`, `[MULTEVK]`, ...): `PHASES`, shared with trace/profiled.py.
+(`[NTT]`, `[MULTEVK]`, ...): `PHASES`, shared with trace/profiled.py.  The
+protected evaluator (fhe/protected.py) opens the same phases around the same
+work, and each detector family's check as a phase of its own right after
+the step it guards: `CHECK_PHASES`.
 """
 from __future__ import annotations
 
@@ -46,6 +50,11 @@ PHASES = ("PERMUTE", "INTT", "BASECONV", "NTT", "MULTEVK", "MODDOWN")
 KEYSWITCH = "KEYSWITCH"     # BASECONV, NTT, MULTEVK and MODDOWN open inside it
 # the phases of each `drop_limb` of the keyswitch's MODDOWN (fhe/rns.py)
 MODDOWN_PHASES = ("MD_INTT", "MD_LIFT", "MD_NTT", "MD_SCALE")
+# the protected evaluator's detectors: PERMUTE and INTT's checks beside
+# those phases, BASECONV's and the keyswitch core's (after MULTEVK) in
+# KEYSWITCH, the mod-down's four in MODDOWN, once per special prime
+CHECK_PHASES = ("CHK_PERMUTE", "CHK_INTT", "CHK_BASECONV", "CHK_KS_CORE", "CHK_MD_INTT",
+                "CHK_MD_LIFT", "CHK_MD_PROJ", "CHK_MD_RANGE")
 DISPATCH = "dispatch"       # a graphed op's call on the host (utils/jitcache.py)
 DEVICE_SPANS = 64           # names the card times: one bit each in a mark's masks
 RING = 1 << 16              # host records kept, the newest
@@ -304,9 +313,11 @@ class Counters:
     """What the graph cache (utils/jitcache.py) did, counted on every call:
     replays and captures, the argument tensors copied into a graph's static
     inputs and their bytes, the outputs cloned out of it and their bytes,
-    and the calls that ran eagerly (under `eager()`) with tensors on a card."""
+    and the calls that ran eagerly (under `eager()`) with tensors on a card;
+    and the detector flags (one bool tensor per family and mod-down) that
+    the protected evaluator's ops returned."""
     FIELDS = ("replays", "captures", "copies_in", "copy_in_bytes", "clones_out",
-              "clone_out_bytes", "eager_on_card")
+              "clone_out_bytes", "eager_on_card", "detector_flags")
     __slots__ = FIELDS
 
     def __init__(self) -> None:

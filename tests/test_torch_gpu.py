@@ -642,6 +642,52 @@ def test_untraced_replay_holds_no_marks(cuda):
     assert [k for k in on if "rfhe_span_mark" not in k] == off
 
 
+@pytest.mark.parametrize("op", ["rotate_rows", "multiply_relin"])
+def test_traced_protected_op_equals_untraced(cuda, op):
+    """A protected BGV op traced on the card (an eager run and capture, three
+    replays) gives the untraced graph's arrays and flags bit for bit; each
+    detector phase adds its time on the card, the mod-down's once per
+    special prime; the untraced graph launches the eager op's kernels and no
+    mark, and serves again once tracing is off."""
+    import numpy as np
+    from rfhe_tpu_torch.fhe import BgvContext, BgvParams
+    from rfhe_tpu_torch.fhe.protected import ProtectedBgv
+    from rfhe_tpu_torch.trace import spans
+    from rfhe_tpu_torch.utils.jitcache import eager
+    ctx = BgvContext(BgvParams.make(n=1024, levels=3), seed=11, dnum=2, device=cuda)
+    pb = ProtectedBgv(ctx)
+    ct = ctx.encrypt(ctx.encode(np.random.default_rng(1).integers(0, ctx.t, (2, 512))))
+    run = {"rotate_rows": lambda: pb.rotate_rows(ct, 1),
+           "multiply_relin": lambda: pb.multiply_relin(ct, ct)}[op]
+
+    def same(a, b):
+        (x, fx), (y, fy) = a, b
+        return (all(torch.equal(p.data, q.data) for p, q in zip(x.c, y.c))
+                and list(fx) == list(fy) and all(torch.equal(fx[k], fy[k]) for k in fx))
+
+    want = [run() for _ in range(3)][-1]
+    off = _kernel_names(run)
+    with eager():
+        plain = _kernel_names(run)
+    assert off == plain and not any("rfhe_span_mark" in k for k in off)
+    spans.enable(cuda)
+    try:
+        snap = spans.snapshot()
+        got = [run() for _ in range(4)]      # eager run and capture, 3 replays
+        read = spans.since(snap)
+    finally:
+        spans.disable()
+    assert all(same(g, want) for g in got) and same(run(), want)
+    specials = len(ctx.ctx.moduli) - ctx.L
+    checks = [c for c in spans.CHECK_PHASES if op == "rotate_rows" or c != "CHK_PERMUTE"]
+    for name in checks + [spans.KEYSWITCH, "MULTEVK", "MODDOWN"]:
+        per = specials if name.startswith("CHK_MD_") else 1
+        assert read[name]["device_count"] == 4 * per and read[name]["device_ns"] > 0, name
+    for name in spans.MODDOWN_PHASES:
+        assert read[name]["device_count"] == 4 * specials and read[name]["parent"] == "MODDOWN"
+    assert read[spans.KEYSWITCH]["self_device_ns"] >= 0 and read["MODDOWN"]["self_device_ns"] >= 0
+
+
 def test_copy_counter_equals_the_shapes(cuda):
     """A replay counts the argument tensors it copies in and the outputs it
     clones, with their bytes as their shapes give them; an op under eager()
@@ -657,7 +703,8 @@ def test_copy_counter_equals_the_shapes(cuda):
     poly = a.c[0].data.numel() * 8                     # one component, int64
     assert spans.COUNTS.since(snap) == {
         "replays": 2, "captures": 0, "copies_in": 2 + 4, "copy_in_bytes": (2 + 4) * poly,
-        "clones_out": 2 + 2, "clone_out_bytes": (2 + 2) * poly, "eager_on_card": 1}
+        "clones_out": 2 + 2, "clone_out_bytes": (2 + 2) * poly, "eager_on_card": 1,
+        "detector_flags": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The span-and-counter recorder (rfhe_tpu_torch/trace/spans.py) on the CPU:
 names, parents, request ids and the `since` arithmetic, host spans on
 `time.time_ns`, the off path, the marks a rotation would enqueue on a card,
-the mod-down's phases once per special prime, the bytes a `Graph` counts
+the mod-down's phases once per special prime, the protected evaluator's
+phases and detector phases and its flag counter, the bytes a `Graph` counts
 against the shapes, and the phase names shared with trace/profiled.py.  The marks themselves run on a card only
 (tests/test_torch_gpu.py)."""
 import time
@@ -196,3 +197,72 @@ def test_graph_bytes_against_the_shapes(rotation):
     rows = (14 * per_op["rotate"] + 64 * per_op["multiply_plain"] + 63 * per_op["add"]
             + per_op["rescale"]) // row
     assert rows == 15916 and rows * 65536 * 8 == 8_344_567_808
+
+
+@pytest.fixture(scope="module")
+def protected_bgv():
+    """A ProtectedBgv over 4 ciphertext limbs at n = 256 with dnum = 2 (two
+    special primes), a ciphertext, and each op's untraced result."""
+    from rfhe_tpu_torch.fhe import BgvContext, BgvParams
+    from rfhe_tpu_torch.fhe.protected import ProtectedBgv
+    ctx = BgvContext(BgvParams.make(n=256, levels=3), seed=5, dnum=2, device="cpu")
+    pb = ProtectedBgv(ctx)
+    ct = ctx.encrypt(ctx.encode(np.random.default_rng(2).integers(0, ctx.t, (2, 128))))
+    ops = {"rotate_rows": lambda: pb.rotate_rows(ct, 1),
+           "multiply_relin": lambda: pb.multiply_relin(ct, ct)}
+    return ctx, ops, {name: op() for name, op in ops.items()}
+
+
+# the plain phases each protected op opens, and the detector phases after them
+_PROTECTED_PHASES = {
+    "rotate_rows": ("PERMUTE", "CHK_PERMUTE", "INTT", "CHK_INTT"),
+    "multiply_relin": ("INTT", "CHK_INTT")}
+_KS_PHASES = ("BASECONV", "CHK_BASECONV", "NTT", "MULTEVK", "CHK_KS_CORE", "MODDOWN")
+_MD_PHASES = ("MD_INTT", "CHK_MD_INTT", "MD_LIFT", "CHK_MD_LIFT", "MD_NTT", "MD_SCALE",
+              "CHK_MD_PROJ", "CHK_MD_RANGE")
+
+
+@pytest.mark.parametrize("op", sorted(_PROTECTED_PHASES))
+def test_protected_op_spans_and_flags(protected_bgv, op, tracing, monkeypatch):
+    """A traced protected BGV op gives the untraced arrays and flags bit for
+    bit; each plain and detector phase closes once, the mod-down's once per
+    special prime under MODDOWN, each name under one parent, in the order
+    the work runs; the op counts the flags it returns; tracing off records
+    and counts the flags alone."""
+    ctx, ops, want = protected_bgv
+    specials = len(ctx.ctx.moduli) - ctx.L
+    marks = []
+    monkeypatch.setattr(spans, "_mark", lambda closes, opens: marks.append((closes, opens)))
+    snap, counts = spans.snapshot(), spans.COUNTS.snapshot()
+    got, flags = ops[op]()
+    read = spans.since(snap)
+    (want_ct, want_flags) = want[op]
+    assert all(torch.equal(x.data, y.data) for x, y in zip(got.c, want_ct.c))
+    assert list(flags) == list(want_flags)
+    assert all(torch.equal(flags[k], want_flags[k]) for k in flags)
+    assert spans.COUNTS.since(counts)["detector_flags"] == len(flags) == 4 + 4 * specials
+    top = _PROTECTED_PHASES[op]
+    assert set(read) == set(top + _KS_PHASES + _MD_PHASES) | {spans.KEYSWITCH, spans.DISPATCH}
+    assert set(spans.CHECK_PHASES) - set(read) == (
+        {"CHK_PERMUTE"} if op == "multiply_relin" else set())
+    parents = {**dict.fromkeys(top + (spans.KEYSWITCH,), spans.DISPATCH),
+               **dict.fromkeys(_KS_PHASES, spans.KEYSWITCH),
+               **dict.fromkeys(_MD_PHASES, "MODDOWN")}
+    for name, parent in parents.items():
+        assert read[name]["parent"] == parent, name
+        assert read[name]["count"] == (specials if parent == "MODDOWN" else 1), name
+    order = [r[0] for r in spans.records(snap)]
+    assert [n for n in order if n in top] == list(top)
+    assert [n for n in order if n in _KS_PHASES] == list(_KS_PHASES)
+    assert [n for n in order if n in _MD_PHASES] == list(_MD_PHASES) * specials
+    # one mark a boundary: the top phases and the close of the last,
+    # KEYSWITCH's six and its close, each mod-down's eight and the close of
+    # the last
+    assert len(marks) == len(top) + 1 + 7 + 8 * specials + 1
+    spans.disable()
+    snap, counts = spans.snapshot(), spans.COUNTS.snapshot()
+    marks.clear()
+    ops[op]()
+    assert spans.since(snap) == {} and spans.records(snap) == [] and marks == []
+    assert spans.COUNTS.since(counts) == dict(
+        dict.fromkeys(spans.Counters.FIELDS, 0), detector_flags=len(flags))
