@@ -108,7 +108,7 @@ def measure(n: int = 4096, levels: int = 9, batch: int = 8, q0_bits=None,
                                                                ks_probe, perm_probe)[1])),
             "HMul+Relin(e2e)": (lambda: ckks.multiply_relin(ct, ct),
                                 lambda: all_ok(prot._mul_relin_impl(
-                                    [c01[0], c01[1]], [c01[0], c01[1]], rlk.b, rlk.a, rlk_probe,
+                                    [c01[0], c01[1]], [c01[0], c01[1]], rlk, rlk_probe,
                                     lvl, 1.0, None)[1])),
         }
         for atom in ops:

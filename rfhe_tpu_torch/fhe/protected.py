@@ -38,6 +38,14 @@ arrives as 0-d int64 tensors, so one program serves every trial of a stage.
 The flags stay tensors until the caller reads them.  The probes are built
 before the program runs and read where they lie.
 
+MULTEVK is the plain keyswitch's `keys.multevk` in every program: on the
+card one launch of `rfhe_ks_mac_kernel`, which reads the key's rows in
+place and reduces by 32-bit REDC, on the CPU `multevk_plain`.  A fault
+flips one of a word's 32 bits, as in the reference's uint32 words, so a
+flipped digit word stays below 2^32, inside the kernel's domain.  The
+`prod0` stage flips a word of digit 0's b product, which the kernel never
+stores: `_prod0_flip` adds the flip's change to that word's digit sum.
+
 Faulted words may lie at or above q.  Every consumer of a faulted word here
 reduces it exactly mod q (the NTT kernels on entry, the dots' products, the
 exact sums, the Shoup rescale), as the reference's do, so outputs and flags
@@ -46,8 +54,8 @@ tests/test_torch_protected_bgv.py).
 
 Traced (`trace/spans.py`), a protected op opens the plain evaluator's spans
 around the same work (PERMUTE and INTT; KEYSWITCH with BASECONV, NTT,
-MULTEVK (the key rows, both products and the digit sums) and MODDOWN; each
-mod-down's MD_INTT, MD_LIFT, MD_NTT and MD_SCALE), and each detector
+MULTEVK (the MAC kernel) and MODDOWN; each mod-down's MD_INTT, MD_LIFT,
+MD_NTT and MD_SCALE), and each detector
 family's check as a phase of its own right after the step it guards
 (`spans.CHECK_PHASES`: CHK_PERMUTE, CHK_INTT, CHK_BASECONV, CHK_KS_CORE,
 CHK_MD_INTT, CHK_MD_LIFT, CHK_MD_PROJ, CHK_MD_RANGE).  `dyadic` is computed
@@ -69,20 +77,25 @@ from ..protect.checks import mont_mul_checked
 from ..protect.ntt_guard import NttGuard
 from ..trace import spans
 from ..utils.jitcache import HoistedJit, by_reference, hoisted_jit
+from . import keys
 from .ckks import Ciphertext, CkksContext
-from .keys import _digit_groups, _sum_digits, compute_digits
-from .rns import RnsPoly, bgv_lift_residue, bgv_lift_shift, lift_to_limbs, limb_plan
+from .keys import KeySwitchKey, _digit_groups, compute_digits
+from .rns import RnsContext, RnsPoly, bgv_lift_residue, bgv_lift_shift, lift_to_limbs, limb_plan
 
 
 @dataclass(frozen=True)
 class Fault:
     """Single-bit flip into a named keyswitch intermediate: stage is one of
     c1_perm, intt_out, digits, digits_ntt, prod0, acc0, ks_out; limb, idx and
-    bit are ints or 0-d tensors."""
+    bit are ints or 0-d tensors, bit one of a 32-bit word's."""
     stage: str
     limb: object = 0
     idx: object = 0
     bit: object = 0
+
+    def __post_init__(self):
+        if not isinstance(self.bit, torch.Tensor) and not 0 <= self.bit < 32:
+            raise ValueError(f"bit {self.bit} of a 32-bit word")
 
 
 def _flip2(x: torch.Tensor, limb, idx, bit) -> torch.Tensor:
@@ -92,6 +105,26 @@ def _flip2(x: torch.Tensor, limb, idx, bit) -> torch.Tensor:
     cols = torch.arange(x.shape[1], device=x.device)[None, :] == idx
     one = torch.ones((), dtype=x.dtype, device=x.device)
     return x ^ torch.where(rows & cols, one << bit, torch.zeros_like(one))
+
+
+def _prod0_flip(acc0: torch.Tensor, dig_ntt: torch.Tensor, ksk: KeySwitchKey, used, lim,
+                ctx: RnsContext, fault: Fault) -> torch.Tensor:
+    """The `prod0` fault on MULTEVK's b accumulator acc0 (len(lim), N): a
+    flip of word [limb, idx] of digit 0's product with the key's b row,
+    which the digit sum then adds.  That product is one word's `mont_mul`
+    (p), so the sum with the flipped word is acc0 + (p ^ 2^bit) - p mod q
+    at that word: bit for bit the sum of the flipped products."""
+    n = acc0.shape[-1]
+    limb, idx, bit = (torch.as_tensor(v, device=acc0.device).reshape(1)
+                      for v in (fault.limb, fault.idx, fault.bit))
+    sub_plan = ctx.plan.take(lim)
+    q, rinv = (v.reshape(-1).index_select(0, limb) for v in (sub_plan.qb(1), sub_plan.rinvb(1)))
+    at = limb * n + idx
+    row = ctx.index(ksk.rows(lim)).index_select(0, limb)
+    p = mont_mul(dig_ntt[0].reshape(-1).index_select(0, at),
+                 ksk.b[used[0]].reshape(-1).index_select(0, row * n + idx), q, rinv)
+    word = acc0.reshape(-1).index_select(0, at) + (p ^ (torch.ones_like(p) << bit)) - p
+    return acc0.reshape(-1).index_copy(0, at, word % q).reshape(acc0.shape)
 
 
 def _check_set(checks, universe):
@@ -218,15 +251,18 @@ class ProtectedCkks:
         return entry
 
     # -- the protected keyswitch -------------------------------------------
-    def _keyswitch_protected(self, d: torch.Tensor, level: int, ksk_b: torch.Tensor,
-                             ksk_a: torch.Tensor, probe: KsProbe, flags: Dict,
+    def _keyswitch_protected(self, d: torch.Tensor, level: int, ksk: KeySwitchKey,
+                             probe: KsProbe, flags: Dict,
                              fault: Optional[Fault]) -> Tuple[torch.Tensor, torch.Tensor]:
         """The hybrid keyswitch of `keys.keyswitch` with its detectors: the
         digits with their appended checksum, the KS-core projection over
         digits → NTT → ⊙key → Σ, and the guarded mod-down by each special
-        prime, last to first.  Traced, it opens the plain keyswitch's span
-        and phases around the same work, and each check as the phase after
-        the step it guards (`spans.CHECK_PHASES`)."""
+        prime, last to first.  MULTEVK is `keys.multevk` (one launch of
+        `rfhe_ks_mac_kernel` on the card, reading the key's rows in place);
+        a `prod0` fault is added to its b sum (`_prod0_flip`).  Traced, it
+        opens the plain keyswitch's span and phases around the same work,
+        and each check as the phase after the step it guards
+        (`spans.CHECK_PHASES`)."""
         ctx, L = self.ckks.ctx, self.ckks.L
         sp_idx = list(range(L, len(ctx.moduli)))
         active = level + 1
@@ -248,29 +284,23 @@ class ProtectedCkks:
                 flags["baseconv"] = sum_mod(dig, q1, axis=-1) == refs
             phase("NTT")
             g_sub = self.guard.take(lim)
-            q_lim, rinv_lim = sub_plan.qb(1), sub_plan.rinvb(1)
             dig_ntt = sub_plan.fwd(dig)
             if fault is not None and fault.stage == "digits_ntt":
                 dig_ntt = torch.cat((_flip2(dig_ntt[0], fault.limb, fault.idx, fault.bit)[None],
                                      dig_ntt[1:]))
             phase("MULTEVK")
-            lim_idx, used_idx = ctx.index(lim), ctx.index(used)
-            kb = ksk_b.index_select(0, used_idx).index_select(1, lim_idx)
-            ka = ksk_a.index_select(0, used_idx).index_select(1, lim_idx)
-            t0 = mont_mul(dig_ntt, kb, q_lim, rinv_lim)
-            t1 = mont_mul(dig_ntt, ka, q_lim, rinv_lim)
+            acc = keys.multevk(dig_ntt, ksk, used, lim, ctx)
             if fault is not None and fault.stage == "prod0":
-                t0 = torch.cat((_flip2(t0[0], fault.limb, fault.idx, fault.bit)[None], t0[1:]))
-            acc0, acc1 = _sum_digits(t0, q_lim), _sum_digits(t1, q_lim)
+                acc = torch.stack((_prod0_flip(acc[0], dig_ntt, ksk, used, lim, ctx, fault),
+                                   acc[1]))
             if fault is not None and fault.stage == "acc0":
-                acc0 = _flip2(acc0, fault.limb, fault.idx, fault.bit)
-            acc = torch.stack([acc0, acc1])
+                acc = torch.stack((_flip2(acc[0], fault.limb, fault.idx, fault.bit), acc[1]))
             # KS CORE: the accumulators (as stored, faulted or not) against
             # the digits through the transposed probe
             if self._on("ks_core"):
                 phase("CHK_KS_CORE")
-                la = g_sub.dot(g_sub.phi, acc0)
-                lb = g_sub.dot(g_sub.phi, acc1)
+                la = g_sub.dot(g_sub.phi, acc[0])
+                lb = g_sub.dot(g_sub.phi, acc[1])
                 lhs = add_mod(la, mul_mod_shoup(lb, probe.rho, probe.rho_shoup, q1), q1)
                 rhs = sum_mod(g_sub.dot(probe.V, dig), q1, axis=0)
                 flags["ks_core"] = lhs == rhs
@@ -379,7 +409,7 @@ class ProtectedCkks:
             if self._on("intt"):
                 phase("CHK_INTT")
                 flags["intt"] = g_act.dot(g_act.phi, d) == g_act.dot(vi_pi, c1)
-        k0, k1 = self._keyswitch_protected(d, level, ksk.b, ksk.a, probe, flags, fault)
+        k0, k1 = self._keyswitch_protected(d, level, ksk, probe, flags, fault)
         c0_out = add_mod(c0g, k0, plan.qb(1))
         return Ciphertext([RnsPoly(c0_out, True), RnsPoly(k1, True)], ct.scale,
                           ct.correction), flags
@@ -404,10 +434,10 @@ class ProtectedCkks:
                fault: Optional[Fault] = None) -> Tuple[Ciphertext, Dict]:
         return self.apply_galois(ct, self.ckks.rotation_galois_element(r), fault)
 
-    def _mul_relin_impl(self, ac, bc, kb, ka, probe: KsProbe, level: int, scale,
+    def _mul_relin_impl(self, ac, bc, rlk: KeySwitchKey, probe: KsProbe, level: int, scale,
                         fault: Optional[Fault], correction: int = 1):
         """Tensor product (checked dyadic products) + protected relin.
-        ac/bc: [c0, c1] data tensors; kb/ka: the whole relin key."""
+        ac/bc: [c0, c1] data tensors; rlk: the relin key."""
         plan = self.ckks.ctx.plan.slice(level + 1)
         qb, rinvb = plan.qb(1), plan.rinvb(1)
         flags: Dict[str, torch.Tensor] = {}
@@ -430,7 +460,7 @@ class ProtectedCkks:
             if self._on("intt"):
                 phase("CHK_INTT")
                 flags["intt"] = self.guard.slice(level + 1).check_inv(d2, d2c)
-        k0, k1 = self._keyswitch_protected(d2c, level, kb, ka, probe, flags, fault)
+        k0, k1 = self._keyswitch_protected(d2c, level, rlk, probe, flags, fault)
         c0, c1 = add_mod(d0, k0, qb), add_mod(d1, k1, qb)
         return Ciphertext([RnsPoly(c0, True), RnsPoly(c1, True)], scale, correction), flags
 
@@ -444,8 +474,8 @@ class ProtectedCkks:
 
         def run(a, b, k, pr, fault):
             corr = a.correction * b.correction % self._ks_t if self._ks_t else 1
-            return self._mul_relin_impl([c.data for c in a.c], [c.data for c in b.c], k.b, k.a,
-                                        pr, lvl, a.scale * b.scale, fault, corr)
+            return self._mul_relin_impl([c.data for c in a.c], [c.data for c in b.c], k, pr,
+                                        lvl, a.scale * b.scale, fault, corr)
 
         if fault is None:
             return _counted(self._jit(key, lambda a, b, k, pr: run(a, b, k, pr, None))(

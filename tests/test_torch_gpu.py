@@ -781,6 +781,67 @@ def test_ks_mac_counts_one_launch_per_rotation_replay(cuda):
     assert len(jit.graphs) == 1 and jit.graphs[0].replays == 2
 
 
+_FAULTS = [None] + [(s, 9) for s in ("c1_perm", "intt_out", "digits", "digits_ntt", "prod0",
+                                      "acc0", "ks_out")] + [("digits_ntt", 31), ("prod0", 31)]
+
+
+@pytest.mark.parametrize("where", _FAULTS, ids=[str(f) for f in _FAULTS])
+def test_protected_multevk_matches_cpu(cuda, where):
+    """ProtectedBgv's rotate_rows and multiply_relin at n=1024 (dnum=2)
+    under each fault stage: the card's arrays and flags equal a CPU run's,
+    and MULTEVK is one MAC launch an op.  Bit 31 puts a digit word (or
+    digit 0's b product) at or above q: the kernel's words stay exact
+    below 2^32."""
+    import numpy as np
+    from rfhe_tpu_torch.fhe import BgvContext, BgvParams
+    from rfhe_tpu_torch.fhe.protected import Fault, ProtectedBgv
+    fault = None if where is None else Fault(where[0], 1, 17, where[1])
+    runs = []
+    for dev in (cuda, "cpu"):
+        ctx = BgvContext(BgvParams.make(n=1024, levels=3), seed=11, dnum=2, device=dev)
+        prot = ProtectedBgv(ctx)
+        ct = ctx.encrypt(ctx.encode(np.random.default_rng(1).integers(0, ctx.t, (2, 512))))
+        run = []
+        for op in (lambda: prot.rotate_rows(ct, 1, fault),
+                   lambda: prot.multiply_relin(ct, ct, fault)):
+            before = ntt_cuda.KERNELS.snapshot()
+            out, flags = op()
+            if dev == cuda:
+                assert sum(ntt_cuda.KERNELS.since(before)["ks_mac"].values()) == 1
+            run.append(([c.data.cpu() for c in out.c], {k: v.cpu() for k, v in flags.items()}))
+        runs.append(run)
+    for (a, fa), (b, fb) in zip(*runs):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert list(fa) == list(fb) and all(torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def test_ks_mac_counts_one_launch_per_protected_rotation_replay(cuda):
+    """A graphed protected rotate_rows at N=16384 over 10 + 1 primes
+    launches the MAC kernel once: the first call's eager warm-up counts one,
+    its capture none, and each of two replays adds exactly one and gives the
+    eager op's arrays and flags."""
+    import numpy as np
+    from rfhe_tpu_torch.fhe import BgvContext, BgvParams
+    from rfhe_tpu_torch.fhe.protected import ProtectedBgv
+    from rfhe_tpu_torch.utils.jitcache import eager
+    ctx = BgvContext(BgvParams.make(n=16384, levels=9, q_bits=30, t_bits=20), seed=11,
+                     device=cuda)
+    prot = ProtectedBgv(ctx)
+    ct = ctx.encrypt(ctx.encode(np.random.default_rng(11).integers(0, ctx.t, (2, 8192))))
+    k = ntt_cuda.KERNELS
+    with eager():
+        want = prot.rotate_rows(ct, 1)
+    for _ in range(3):                      # capture, then two replays
+        before = k.snapshot()
+        got = prot.rotate_rows(ct, 1)
+        assert k.since(before)["ks_mac"] == {(10, 11, 16384): 1}
+        assert all(torch.equal(x.data, y.data) for x, y in zip(got[0].c, want[0].c))
+        assert list(got[1]) == list(want[1])
+        assert all(torch.equal(got[1][f], want[1][f]) for f in want[1])
+    (jit,) = prot._jits.values()
+    assert len(jit.graphs) == 1 and jit.graphs[0].replays == 2
+
+
 # ---------------------------------------------------------------------------
 # MODDOWN's kernels (csrc/ntt.cu:rfhe_md_lift_kernel, rfhe_md_scale_kernel;
 # fhe/rns.py:moddown_lift, moddown_scale)

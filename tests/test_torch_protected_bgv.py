@@ -13,6 +13,7 @@ from rfhe_tpu.fhe.bgv import BgvContext as RefBgv
 from rfhe_tpu.fhe.params import BgvParams as RefParams
 from rfhe_tpu.fhe.protected import Fault as RefFault, ProtectedBgv as RefProtected
 from rfhe_tpu_torch.fhe import BgvContext, BgvParams
+from rfhe_tpu_torch.fhe import keys as fhe_keys
 from rfhe_tpu_torch.fhe.protected import Fault, ProtectedBgv, all_ok
 
 torch.set_num_threads(1)
@@ -121,3 +122,25 @@ def test_multiply_fault(pair, stage, keys):
     out = pair.tp.multiply_relin(pair.ct, pair.ct, Fault(stage, 0, 11, 7))
     _same_op(out, pair.ref_multiply(RefFault(stage, 0, 11, 7)))
     assert set(keys) <= set(_fired(out[1]))
+
+
+@pytest.mark.parametrize("stage", [None] + [s for s, _ in ROTATE_STAGES])
+def test_multevk_once_per_op(pair, stage, monkeypatch):
+    """Every protected op's MULTEVK is one `keys.multevk` call (the MAC
+    kernel on a card) under every fault stage, prod0 included."""
+    calls = []
+    real = fhe_keys.multevk
+    monkeypatch.setattr(fhe_keys, "multevk", lambda *a: calls.append(a) or real(*a))
+    fault = None if stage is None else Fault(stage, 1, 17, 9)
+    pair.tp.rotate_rows(pair.ct, 2, fault)
+    assert len(calls) == 1
+    pair.tp.multiply_relin(pair.ct, pair.ct, fault)
+    assert len(calls) == 2
+
+
+def test_fault_bit_is_one_of_32():
+    """A fault flips one of a 32-bit word's bits, as the reference's uint32
+    words hold; a bit past them is refused where the fault is made."""
+    assert Fault("digits_ntt", 0, 0, 31).bit == 31
+    with pytest.raises(ValueError):
+        Fault("digits_ntt", 0, 0, 32)
