@@ -9,7 +9,12 @@ public evaluator, so that no result can be served from the call before.
 Each kind also gives the plaintext answer of set i, computed by the
 reference, and the numbers that judge an output against it.
 
-Kinds:
+A kind is registered with `@kind(name)`.  Those below live here; any other
+lives in a file of its own, `benchmark/kinds/<kind>.py`, which `make` loads
+from the checkout by path the first time a mix names it, so that a later
+kind is a new file and no edit here.
+
+Kinds here:
   bsgs_matvec   CKKS: y = M·x for a d×d matrix, baby-step giant-step over
                 the d generalised diagonals, pre-rotated and encoded at
                 set-up (`rfhe_tpu_torch/models/bsgs.py:matvec_bsgs`'s order)
@@ -20,7 +25,9 @@ Kinds:
 """
 from __future__ import annotations
 
+import importlib.util
 import math
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import torch
@@ -29,6 +36,7 @@ from . import program
 from .reference import scheme
 
 KINDS: Dict[str, type] = {}
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def kind(name: str):
@@ -38,11 +46,24 @@ def kind(name: str):
     return register
 
 
-def make(mix: dict, deployment: dict, control: Optional[dict], keys, gen, device):
-    """The circuit a mix names."""
-    if mix["kind"] not in KINDS:
-        raise ValueError(f"unknown circuit kind {mix['kind']!r}; known: {sorted(KINDS)}")
-    cls = KINDS[mix["kind"]]
+def kind_class(name: str, root: Path = ROOT) -> type:
+    """The class registered as kind `name`: one of this file's, or the one
+    that `benchmark/kinds/<name>.py` in the checkout at `root` registers."""
+    if name not in KINDS:
+        path = root / Path(__file__).parent.name / "kinds" / f"{name}.py"
+        if not path.is_file():
+            raise ValueError(f"unknown circuit kind {name!r}: no {path}; known: {sorted(KINDS)}")
+        spec = importlib.util.spec_from_file_location(f"benchmark.kinds.{name}", path)
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        if name not in KINDS:
+            raise ValueError(f"{path} registers no kind {name!r}")
+    return KINDS[name]
+
+
+def make(mix: dict, deployment: dict, control: Optional[dict], keys, gen, device,
+         root: Path = ROOT):
+    """The circuit a mix names, its kind found in the checkout at `root`."""
+    cls = kind_class(mix["kind"], root)
     if cls.scheme != deployment["scheme"]:
         raise ValueError(f"{mix['kind']} is a {cls.scheme} circuit, the configuration is "
                          f"{deployment['scheme']}")

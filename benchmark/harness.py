@@ -2,10 +2,13 @@
 
 Everything a cell is made of is found by name from `BENCHMARK.json`: the
 configuration's file, `traffic/<mix>.json` (read by `circuits.py`, the one
-generator), `limits/<cell>.json` (the limit of each number compared) and
+generator), `limits/<cell>.json` (the limit of each number compared),
 `metrics/<metric>.py` (one reader per metric, `read(run)`, which returns
-None where it finds nothing to read).  A later cell, mix or metric is new
-files and new entries; nothing here names one.
+None where it finds nothing to read) and, for a circuit kind that
+`circuits.py` does not hold, `kinds/<kind>.py` (which registers it with
+`@circuits.kind`).  A later cell, mix, metric or circuit kind is new files
+and new entries; nothing here names one.  The configuration's scheme is
+CKKS, BGV or BFV (`program.build`, `reference.scheme`).
 
 The window is a closed loop with one client: circuit i is enqueued on input
 set i mod pool, the client synchronises (and, in a protected circuit, reads
@@ -119,9 +122,10 @@ def _keep(ct, into=None) -> SimpleNamespace:
 
 
 def run_cell(parts: tuple, seed: int, seconds: float, traced: bool, device,
-             t_start: float, control: bool = False) -> tuple:
+             t_start: float, control: bool = False, root: Path = ROOT) -> tuple:
     """(Run, per-sample numbers, the protected cell's counts, limits) of one
-    run of the cell `parts` (`cell(...)`); see the module's note."""
+    run of the cell `parts` (`cell(...)` of the checkout at `root`); see the
+    module's note."""
     w, cfg, mix, limits = parts
     marks = [("start", t_start), ("imports", time.perf_counter())]
     dev = torch.device(device)
@@ -130,7 +134,7 @@ def run_cell(parts: tuple, seed: int, seconds: float, traced: bool, device,
     gen.manual_seed(seed)
     basis = scheme.Basis.make(dep, dev)
     keys = scheme.Keys(basis, gen, dep["sigma"])
-    circ = circuits.make(mix, dep, cfg["control"] if control else None, keys, gen, dev)
+    circ = circuits.make(mix, dep, cfg["control"] if control else None, keys, gen, dev, root)
     recorder = program.spans() if traced else None
     if recorder is not None:
         recorder.enable(dev)

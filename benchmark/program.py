@@ -3,9 +3,9 @@
 The benchmark makes the keys (benchmark/reference/scheme.py) and hands them
 over through the program's public constructors and key slots: a
 `CkksContext` takes them through `load_keys` (numpy uint32, the layout its
-docstring gives); a `BgvContext` has no `load_keys`, so its `sk`, `pk`,
-`rlk` and Galois keys are set as the objects its key generation would make.
-Both take the configuration's keyswitch layout (`Basis.dnum`).
+docstring gives); a `BgvContext` or `BfvContext` has no `load_keys`, so its
+`sk`, `pk`, `rlk` and Galois keys are set as the objects its key generation
+would make.  Each takes the configuration's keyswitch layout (`Basis.dnum`).
 Ciphertexts and plaintexts built by the benchmark are wrapped in the
 program's `Ciphertext` and `RnsPoly`.  `spans()` is the program's span
 recorder, which the benchmark turns on in a traced run only.
@@ -17,10 +17,11 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from rfhe_tpu_torch.fhe.bfv import BfvContext
 from rfhe_tpu_torch.fhe.bgv import BgvContext
 from rfhe_tpu_torch.fhe.ckks import Ciphertext, CkksContext
 from rfhe_tpu_torch.fhe.keys import KeySwitchKey, PublicKey, SecretKey
-from rfhe_tpu_torch.fhe.params import BgvParams, CkksParams
+from rfhe_tpu_torch.fhe.params import BfvParams, BgvParams, CkksParams
 from rfhe_tpu_torch.fhe.protected import Fault, ProtectedBgv
 from rfhe_tpu_torch.fhe.rns import RnsPoly
 
@@ -33,23 +34,25 @@ def _u32(t: torch.Tensor) -> np.ndarray:
 def build(deployment: dict, keys, galois: Iterable[int], relin: bool, seed: int, device):
     """The program's context for `deployment`, holding the benchmark's keys:
     the secret and public key, a Galois key for each element of `galois`,
-    and the relinearisation key if `relin`."""
-    basis = keys.basis
-    if deployment["scheme"] == "ckks":
+    and the relinearisation key if `relin`.  The scheme is one that
+    `Basis.make` took: "ckks", else "bfv", else "bgv"."""
+    basis, kind = keys.basis, deployment["scheme"]
+    if kind == "ckks":
         params = CkksParams.make(n=deployment["n"], levels=deployment["levels"],
                                  q0_bits=deployment["q0_bits"],
                                  scale_bits=deployment["scale_bits"])
         ctx = CkksContext(params, special_bits=deployment["special_prime_bits"], seed=seed,
                           dnum=basis.dnum, device=device)
     else:
-        params = BgvParams.make(n=deployment["n"], levels=deployment["levels"],
-                                q_bits=deployment["q_bits"], t_bits=deployment["t_bits"])
-        ctx = BgvContext(params, special_bits=deployment["special_prime_bits"], seed=seed,
-                         dnum=basis.dnum, device=device)
+        params_cls, ctx_cls = (BfvParams, BfvContext) if kind == "bfv" else (BgvParams, BgvContext)
+        params = params_cls.make(n=deployment["n"], levels=deployment["levels"],
+                                 q_bits=deployment["q_bits"], t_bits=deployment["t_bits"])
+        ctx = ctx_cls(params, special_bits=deployment["special_prime_bits"], seed=seed,
+                      dnum=basis.dnum, device=device)
     if tuple(ctx.ctx.moduli) != basis.ct + basis.special or ctx.params.n != basis.n:
         raise ValueError(f"the program's basis {ctx.ctx.moduli} is not the configuration's "
                          f"{basis.ct + basis.special}")
-    if deployment["scheme"] == "ckks":
+    if kind == "ckks":
         state = {"sk_s_ntt": _u32(keys.s_slots), "sk_s_coeff": keys.s.cpu().numpy(),
                  "pk_b": _u32(keys.pk_b), "pk_a": _u32(keys.pk_a)}
         for g in galois:

@@ -1,22 +1,24 @@
-"""Keys, encryption, encoding and decryption of CKKS and BGV, in plain PyTorch.
+"""Keys, encryption, encoding and decryption of CKKS, BGV and BFV, in plain PyTorch.
 
 The keys come out in the program's layout (the docstring of
 `rfhe_tpu_torch/fhe/keys.py`): the secret s ternary, its slots over every
-prime of the basis; a public key (b, a) = (t·e − a·s, a) over the
-ciphertext primes (t = 1 in CKKS); and for a key switching s' -> s, one
-pair per digit group j over the whole basis,
+prime of the basis; a public key (b, a) = (f·e − a·s, a) over the
+ciphertext primes, f = t in BGV and 1 in CKKS and BFV; and for a key
+switching s' -> s, one pair per digit group j over the whole basis,
 
-    b_j = t·e_j − a_j·s + [P·s' on the limbs of group j],
+    b_j = f·e_j − a_j·s + [P·s' on the limbs of group j],
 
 P the special primes' product.  The configuration's `digits` sets the
 groups: "per_limb" is one limb a group over one special prime; an integer
 dnum is ⌈L/dnum⌉ contiguous limbs a group over as many special primes.
 
 Everything is drawn on the device from one `torch.Generator`, in a few large
-calls.  Decryption reads a ciphertext's slots back with `Tables.inv`, takes
-the small integer that its first two limbs determine (Garner), and counts
-the other limbs that disagree with it: a sound ciphertext decrypts to one
-small integer in every limb.
+calls.  Decryption reads a ciphertext's slots back with `Tables.inv`.  CKKS
+and BGV take the small integer that its first two limbs determine (Garner),
+and count the other limbs that disagree with it: a sound ciphertext decrypts
+to one small integer in every limb.  A BFV ciphertext decrypts to Δ·m + e,
+Δ = ⌊Q/t⌋, as wide as Q: it is rounded to m exactly, by the CRT over every
+limb in Python integers (`bfv_round`).
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ import numpy as np
 import torch
 
 from .ntt import Tables, prime_chain, special_primes
+
+
+SCHEMES = ("bfv", "bgv", "ckks")
 
 
 def dnum(deployment: dict) -> Optional[int]:
@@ -43,36 +48,40 @@ def dnum(deployment: dict) -> Optional[int]:
 
 @dataclass
 class Basis:
-    """The deployment's primes: ciphertext primes, special primes, t (BGV),
-    and the keyswitch's digit groups."""
+    """The deployment's primes: ciphertext primes, special primes, t (BGV
+    and BFV), and the keyswitch's digit groups."""
     n: int
     ct: tuple
     special: tuple
     t: Optional[int]
     tables: Tables                  # ciphertext primes, then special primes
-    t_tables: Optional[Tables]      # the plaintext prime t (BGV)
+    t_tables: Optional[Tables]      # the plaintext prime t (BGV and BFV)
     dnum: Optional[int]             # digit groups; None: per-limb digits
+    scheme: str                     # "ckks", "bgv" or "bfv"
 
     @classmethod
     def make(cls, deployment: dict, device) -> "Basis":
         """From a configuration's `deployment` group."""
-        n, levels = deployment["n"], deployment["levels"]
+        n, levels, kind = deployment["n"], deployment["levels"], deployment["scheme"]
         d = dnum(deployment)
-        if deployment["scheme"] == "ckks":
+        if kind not in SCHEMES:
+            raise ValueError(f"unknown scheme {kind!r}; known: {', '.join(SCHEMES)}")
+        if kind == "ckks":
             bits = [deployment["q0_bits"]] + [deployment["scale_bits"]] * levels
         else:
             bits = [deployment["q_bits"]] * (levels + 1)
         ct = prime_chain(n, bits)
         t = None
         taken = list(ct)
-        if deployment["scheme"] == "bgv":
+        if kind != "ckks":
             t = prime_chain(n, [deployment["t_bits"]])[0]
             taken.append(t)
         count = 1 if d is None else -(-len(ct) // d)
         sp = special_primes(n, deployment["special_prime_bits"], count, taken)
         return cls(n=n, ct=tuple(ct), special=tuple(sp), t=t,
                    tables=Tables.make(n, ct + sp, device),
-                   t_tables=Tables.make(n, [t], device) if t else None, dnum=d)
+                   t_tables=Tables.make(n, [t], device) if t else None, dnum=d,
+                   scheme=kind)
 
     @property
     def L(self) -> int:
@@ -120,7 +129,7 @@ class Keys:
 
     def __init__(self, basis: Basis, gen: torch.Generator, sigma: float = 3.2):
         self.basis, self.gen, self.sigma = basis, gen, sigma
-        self.nf = basis.t or 1                      # noise factor: t in BGV
+        self.nf = basis.t if basis.scheme == "bgv" else 1     # noise factor: t in BGV
         dev = basis.tables.q.device
         self.s = ternary(gen, (basis.n,), dev)
         self.s_slots = basis.tables.fwd(residues(self.s, basis.tables))
@@ -155,7 +164,7 @@ class Keys:
 
     def encrypt(self, m: torch.Tensor, level: int):
         """Public-key encryptions of coefficient residues m (B, level+1, n):
-        (c0, c1) = (b·u + F(t·e0 + m), a·u + F(t·e1)), each (B, level+1, n)."""
+        (c0, c1) = (b·u + F(f·e0 + m), a·u + F(f·e1)), each (B, level+1, n)."""
         tab = self.basis.level_tables(level)
         B, n, dev = m.shape[0], self.basis.n, m.device
         u = tab.fwd(residues(ternary(self.gen, (B, n), dev), tab))
@@ -166,14 +175,23 @@ class Keys:
         c1 = (tab.mont(self.pk_a[:k], u) + tab.fwd(e1)) % tab.q
         return c0, c1
 
+    def _phase(self, c0: torch.Tensor, c1: torch.Tensor) -> tuple:
+        """(x = c0 + c1·s in coefficients (..., level+1, n), the level's tables)."""
+        tab = self.basis.level_tables(c0.shape[-2] - 1)
+        k = c0.shape[-2]
+        return tab.inv((c0 + tab.mont(c1, self.s_slots[:k])) % tab.q), tab
+
     def decrypt(self, c0: torch.Tensor, c1: torch.Tensor):
         """(the small integer each coefficient decrypts to (..., n), the number
         of (limb, coefficient) residues beyond the first two that disagree
         with it)."""
-        tab = self.basis.level_tables(c0.shape[-2] - 1)
-        k = c0.shape[-2]
-        res = tab.inv((c0 + tab.mont(c1, self.s_slots[:k])) % tab.q)
-        return small_value(res, tab)
+        return small_value(*self._phase(c0, c1))
+
+    def decrypt_bfv(self, c0: torch.Tensor, c1: torch.Tensor):
+        """BFV: (m (n,) in [0, t), noise_bits) of one ciphertext (level+1, n);
+        see `bfv_round`."""
+        res, tab = self._phase(c0, c1)
+        return bfv_round(res, tab.primes, self.basis.t)
 
 
 def small_value(res: torch.Tensor, tab: Tables):
@@ -188,6 +206,41 @@ def small_value(res: torch.Tensor, tab: Tables):
     rest = tab.q[2:]
     bad = (v.unsqueeze(-2) % rest != res[..., 2:, :]).sum()
     return v, int(bad)
+
+
+def crt(res: torch.Tensor, primes) -> np.ndarray:
+    """Residues (k, n) -> the integers x in [0, Q) (n,), Q the primes'
+    product, as Python integers in an object array: exact at any width."""
+    Q = math.prod(primes)
+    x = np.zeros(res.shape[-1], dtype=object)
+    for r, q in zip(res.cpu().numpy(), primes):
+        x += r.astype(object) * (Q // q * pow(Q // q, -1, q))   # 1 mod q, 0 mod the rest
+    return x % Q
+
+
+def bfv_round(res: torch.Tensor, primes, t: int) -> tuple:
+    """BFV's decryption of x = [c0 + c1·s]_Q from its residues (k, n):
+    (m = ⌊t·x/Q⌉ mod t (n,) in [0, t), noise_bits = log2(max|e| + 1) of the
+    invariant noise e = [x − Δ·m]_Q, centred, Δ = ⌊Q/t⌋).  m is exact while
+    |e| < Δ/2 − t (t·x = Q·m − (Q mod t)·m + t·e): noise_bits has to stay
+    under log2(Δ/2)."""
+    Q = math.prod(primes)
+    x = crt(res, primes)
+    m = (2 * t * x + Q) // (2 * Q) % t
+    e = (x - Q // t * m) % Q
+    worst = max(min(v, Q - v) for v in e)
+    return torch.as_tensor(m.astype(np.int64), device=res.device), math.log2(worst + 1)
+
+
+# -- BFV: the message as Δ·m ----------------------------------------------------
+
+def bfv_message(m: torch.Tensor, basis: Basis, level: int) -> torch.Tensor:
+    """Coefficients mod t (..., n) in [0, t) -> the residues (..., level+1, n)
+    of Δ·m, Δ = ⌊Q_level/t⌋, as `Keys.encrypt` takes its message."""
+    tab = basis.level_tables(level)
+    delta = math.prod(tab.primes) // basis.t
+    d = torch.tensor([delta % q for q in tab.primes], device=m.device)[:, None]
+    return m.unsqueeze(-2) % tab.q * d % tab.q
 
 
 # -- CKKS: the canonical embedding -------------------------------------------

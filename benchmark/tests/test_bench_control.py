@@ -1,18 +1,27 @@
 """The comparison that decides `correct` fails where it must: the control
 (the configuration's lower precision) and a timed path broken underneath,
 once for each fault a cell can have.  At the tiny ring of `tiny.py`, on the
-CPU: the harness's look for a card is skipped, the rest of a run is driven.
-The chip runs the control at the cells' own sizes with `benchmark/control.py`."""
+CPU: the harness's look for a card is skipped, the rest of a run is driven;
+`tiny.BFV_CELL` stands for a BFV cell.  The chip runs the control at the
+cells' own sizes with `benchmark/control.py`."""
 import pytest
 import torch
 
 from benchmark.tests import tiny
+from rfhe_tpu_torch.fhe.bfv import BehzPlan, BfvContext
 from rfhe_tpu_torch.fhe.bgv import BgvContext
 from rfhe_tpu_torch.fhe.ckks import Ciphertext, CkksContext
 from rfhe_tpu_torch.fhe.rns import RnsPoly
+from rfhe_tpu_torch.ops.baseconv import base_conv
 
-CKKS = [c for c in tiny.CELLS if c.startswith("ckks")]
-BGV = [c for c in tiny.CELLS if c.startswith("bgv")]
+
+def _scheme(name: str) -> str:
+    return tiny.parts(name)[1]["deployment"]["scheme"]
+
+
+CKKS = [c for c in tiny.CELLS if _scheme(c) == "ckks"]
+INTEGER = [c for c in tiny.CELLS if _scheme(c) != "ckks"] + [tiny.BFV_CELL]
+CONTEXTS = {"ckks": CkksContext, "bgv": BgvContext, "bfv": BfvContext}
 
 
 @pytest.mark.parametrize("name", CKKS)
@@ -23,7 +32,7 @@ def test_ckks_control_reads_far_above_the_program(name):
     assert low > 3 * sound
 
 
-@pytest.mark.parametrize("name", BGV)
+@pytest.mark.parametrize("name", INTEGER)
 def test_bgv_control_is_not_correct(name):
     correct, failed, checks, _ = tiny.run(name, control=True)
     assert not correct and checks["slot_mismatch"][0] > 0
@@ -61,13 +70,19 @@ FAULTS = {
         "half_left_out": ("add", _every_other),
         "answer_altered": ("mod_switch_to_next", lambda f: lambda self, ct: _flip(f(self, ct))),
     },
+    "bfv": {
+        "state_unchanged": ("multiply_relin", lambda f: lambda self, a, b: a),
+        "half_left_out": ("multiply_relin", _every_other),
+        "answer_altered": ("multiply_relin", lambda f: lambda self, a, b: _flip(f(self, a, b))),
+    },
 }
 
 
-@pytest.mark.parametrize("name,fault", [(c, f) for c in tiny.CELLS for f in FAULTS["ckks"]])
+@pytest.mark.parametrize("name,fault", [(c, f) for c in [*tiny.CELLS, tiny.BFV_CELL]
+                                        for f in FAULTS["ckks"]])
 def test_a_broken_timed_path_is_not_correct(name, fault, monkeypatch):
-    scheme = "ckks" if name.startswith("ckks") else "bgv"
-    cls = CkksContext if scheme == "ckks" else BgvContext
+    scheme = _scheme(name)
+    cls = CONTEXTS[scheme]
     method, breaker = FAULTS[scheme][fault]
     if name.endswith("chanmix_c64") and fault == "state_unchanged":
         method, breaker = "multiply_plain", lambda f: lambda self, ct, pt, s: ct
@@ -79,3 +94,15 @@ def test_a_broken_timed_path_is_not_correct(name, fault, monkeypatch):
     monkeypatch.setattr(cls, method, breaker(getattr(cls, method)))
     correct, failed, checks, _ = tiny.run(name)
     assert not correct, checks
+
+
+def _conv_sk_without_alpha(self, w):
+    """`BehzPlan.conv_sk` with its m_sk correction (α·B) left out."""
+    conv = base_conv(w[..., :-1, :] * self.bhat_inv % self.bsk_col[:-1], self.conv_b_to_qmsk)
+    return conv[..., :-1, :].contiguous()
+
+
+def test_a_broken_bfv_path_is_not_correct(monkeypatch):
+    monkeypatch.setattr(BehzPlan, "conv_sk", _conv_sk_without_alpha)
+    correct, failed, checks, _ = tiny.run(tiny.BFV_CELL)
+    assert not correct and checks["slot_mismatch"][0] > 0, checks

@@ -1,5 +1,5 @@
-"""BENCHMARK.json against the files it names, cells found by name, the
-keyswitch layout a configuration states, the metric readers on synthetic
+"""BENCHMARK.json against the files it names, cells, schemes and circuit kinds
+found by name, the keyswitch layout a configuration states, the metric readers on synthetic
 records and spans, the traced run's spans, the import guard and the missing
 card."""
 import ast
@@ -18,7 +18,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from benchmark import harness, trace as tracing, yardstick
+from benchmark import circuits, harness, trace as tracing, yardstick
 from benchmark.reference import scheme
 from benchmark.tests import tiny
 from rfhe_tpu_torch.trace import spans as program_spans
@@ -68,7 +68,7 @@ def test_spec_keys_and_names():
 def test_every_cell_resolves_to_its_files(name):
     w, cfg, mix, limits = harness.cell(tiny.SPEC_ALL, name)
     assert cfg["name"] == w["config"]
-    assert mix["kind"] in harness.circuits.KINDS
+    assert circuits.kind_class(mix["kind"]).scheme == cfg["deployment"]["scheme"]
     assert limits and all(isinstance(v, (int, float)) for v in limits.values())
 
 
@@ -112,6 +112,51 @@ def test_a_new_config_mix_and_metric_are_found_without_an_edit(tmp_path):
     assert correct, checks
     got = {m["name"]: harness.reader(m["name"], tmp_path)(r) for m in spec["end_to_end"]}
     assert got["circuits_total"] == len(r.ends) and got["circuits_per_s"] > 0
+
+
+KIND_FILE = """from benchmark import circuits
+
+
+@circuits.kind("scratch_kind")
+class ScratchKind(circuits.Circuit):
+    scheme = "bfv"
+"""
+
+
+def test_a_bfv_cell_and_a_circuit_kind_are_new_files_only(tmp_path, monkeypatch):
+    """A BFV configuration, a product-tree mix, its limits and a circuit kind
+    of its own, all added as files and entries: nothing that was there
+    changes, the BFV cell runs correct, and the kind is found by its name."""
+    monkeypatch.setattr(circuits, "KINDS", dict(circuits.KINDS))
+    shutil.copytree(BENCH, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    before = _digest(tmp_path)
+    files, entries = tiny.bfv_cell()
+    for rel, obj in files.items():
+        (tmp_path / "benchmark" / rel).write_text(json.dumps(obj))
+    (tmp_path / "benchmark/kinds/scratch_kind.py").write_text(KIND_FILE)
+    spec = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    for section, entry in entries.items():
+        spec[section].append(entry)
+    after = _digest(tmp_path)
+    assert {k: v for k, v in after.items() if k in before} == before
+    correct, failed, checks, r = tiny.run(tiny.BFV_CELL, root=tmp_path,
+                                          cut=harness.cell(spec, tiny.BFV_CELL, tmp_path))
+    assert correct and failed == 0 and checks["slot_mismatch"][0] == 0, checks
+    assert 0 < checks["noise_bits"][0] < checks["noise_bits"][1]
+    with pytest.raises(ValueError, match="unknown circuit kind 'scratch_kind'"):
+        circuits.kind_class("scratch_kind")
+    assert circuits.kind_class("scratch_kind", tmp_path).__name__ == "ScratchKind"
+    (tmp_path / "benchmark/kinds/silent_kind.py").write_text("X = 1\n")
+    with pytest.raises(ValueError, match="registers no kind 'silent_kind'"):
+        circuits.kind_class("silent_kind", tmp_path)
+
+
+def test_an_unknown_scheme_raises():
+    dep = dict(tiny.bfv_parts()[1]["deployment"], scheme="tfhe")
+    with pytest.raises(ValueError, match="unknown scheme 'tfhe'; known: bfv, bgv, ckks"):
+        scheme.Basis.make(dep, "cpu")
 
 
 # Two circuits in a 1000 µs window: an NTT kernel (100 µs, overlapping a

@@ -1,12 +1,16 @@
-"""The reference against the program's own layout, and every cell's circuit
-decrypted by the reference at a tiny ring on the CPU."""
+"""The reference against the program's own layout, BFV's encryptions and keys
+against the program's, and every cell's circuit decrypted by the reference at
+a tiny ring on the CPU."""
+import numpy as np
 import pytest
 import torch
 
+from benchmark import program
 from benchmark.reference import ntt as rntt, scheme
 from benchmark.tests import tiny
 from rfhe_tpu_torch.fhe.bgv import BgvContext
 from rfhe_tpu_torch.fhe.ckks import CkksContext
+from rfhe_tpu_torch.fhe.keys import KeySwitchKey
 from rfhe_tpu_torch.fhe.params import BgvParams, CkksParams, make_prime_chain
 from rfhe_tpu_torch.ops.ntt import NttPlan
 
@@ -101,4 +105,76 @@ def test_each_cell_decrypts_to_its_plaintext_circuit(name):
     correct, failed, checks, r = tiny.run(name)
     assert correct and failed == 0, checks
     assert len(r.ends) >= 2
-    assert all(v == 0 for k, (v, _) in checks.items() if k != "slot_err")
+    assert all(v == 0 for k, (v, _) in checks.items() if k not in ("slot_err", "noise_bits"))
+
+
+# -- BFV: the reference's keys and encryptions are the program's ---------------
+
+def _bfv(seed: int):
+    """(basis, reference keys, the program's BfvContext holding them, three
+    slot matrices) at n = 256, five 30-bit primes, t of 16 bits."""
+    dep = tiny.bfv_parts()[1]["deployment"]
+    basis = scheme.Basis.make(dep, "cpu")
+    gen = torch.Generator().manual_seed(seed)
+    keys = scheme.Keys(basis, gen, dep["sigma"])
+    ctx = program.build(dep, keys, [], True, seed, "cpu")
+    assert type(ctx).__name__ == "BfvContext" and ctx.t == basis.t
+    m = torch.randint(0, basis.t, (3, 2, basis.n // 2), generator=gen)
+    return basis, keys, ctx, m
+
+
+def _ref_encrypt(basis, keys, m):
+    top = basis.L - 1
+    c0, c1 = keys.encrypt(scheme.bfv_message(scheme.bgv_encode(m, basis), basis, top), top)
+    return program.ciphertexts(c0, c1)
+
+
+def test_bfv_reference_encryption_decrypts_in_the_program():
+    basis, keys, ctx, m = _bfv(2 ** 31 + 21)
+    for ct, want in zip(_ref_encrypt(basis, keys, m), m):
+        assert np.array_equal(ctx.decrypt_decode(ct), want.numpy())
+        assert np.array_equal(ctx.decode(ctx.decrypt_coeffs_t(ct, exact=True)), want.numpy())
+
+
+def test_bfv_program_encryption_decrypts_in_the_reference():
+    basis, keys, ctx, m = _bfv(2 ** 31 + 22)
+    for want in m:
+        ct = ctx.encrypt(ctx.encode(want.numpy()))
+        got, noise_bits = keys.decrypt_bfv(ct.c[0].data, ct.c[1].data)
+        assert torch.equal(scheme.bgv_decode(got, basis), want)
+        assert 0 < noise_bits < 20          # fresh: about log2(n·σ), far under log2(Δ/2)
+
+
+def test_bfv_reference_keys_relinearise_a_program_multiply():
+    basis, keys, ctx, m = _bfv(2 ** 31 + 23)
+    a, b, _ = _ref_encrypt(basis, keys, m)
+    prod = ctx.multiply_relin(a, b)
+    assert prod.size == 2
+    want = m[0] * m[1] % basis.t
+    got, noise_bits = keys.decrypt_bfv(prod.c[0].data, prod.c[1].data)
+    assert torch.equal(scheme.bgv_decode(got, basis), want)
+    assert np.array_equal(ctx.decrypt_decode(prod), want.numpy())
+    # a wrong secret's relinearisation key leaves the product undecryptable
+    ctx.rlk = KeySwitchKey(*scheme.Keys(basis, torch.Generator().manual_seed(5))
+                                   .relin_key())
+    ctx._jits = {}
+    bad = ctx.multiply_relin(a, b)
+    assert not torch.equal(scheme.bgv_decode(keys.decrypt_bfv(bad.c[0].data, bad.c[1].data)[0],
+                                             basis), want)
+
+
+def test_bfv_decryption_rounds_exactly_at_the_edge_of_the_noise():
+    """x = Δ·m + e over 150 bits, |e| up to Δ/2 − t (Q = t·Δ + r, r < t, so
+    t·x = Q·m − r·m + t·e): every m comes back, and noise_bits reads the
+    widest |e|."""
+    basis = scheme.Basis.make(tiny.bfv_parts()[1]["deployment"], "cpu")
+    tab, t = basis.level_tables(basis.L - 1), basis.t
+    Q = int(np.prod([int(q) for q in tab.primes], dtype=object))
+    delta = Q // t
+    m = [0, 1, t - 1, t // 2, 12345] + [7] * (basis.n - 5)
+    e = [0, -1, 2 ** 100, -(delta // 2 - t), delta // 2 - t] + [3] * (basis.n - 5)
+    x = [(delta * mi + ei) % Q for mi, ei in zip(m, e)]
+    res = torch.tensor([[xi % q for xi in x] for q in tab.primes])
+    got, noise_bits = scheme.bfv_round(res, tab.primes, t)
+    assert got.tolist() == m
+    assert noise_bits == pytest.approx(np.log2(float(delta // 2 - t + 1)), abs=1e-9)
